@@ -16,6 +16,17 @@ Phases, each raising on failure:
   7. ransac    one frame tracked from a prior ~0.3 m / 10 deg off
   8. timing    each kernel beside its plain version at the path's shapes
   9. profile   device time per tracked frame, by kernel (torch.profiler)
+ 10. B4/B5     segment reduce/expand kernels vs their plain versions at
+               BASELINE.json config-#5 shapes, at ragged shapes with
+               out-of-range camera ids, and with planted hot cameras
+ 11. large map config #5 at full scale (5000 keyframes x 1,048,576
+               landmarks x 4 observations) through large_map.run: cost drop,
+               pose recovery, B4/B5 launch counts, iterations/s, peak memory
+ 12. LM trace  device busy share and top kernels of one warm large-map
+               optimize (torch.profiler)
+ 13. online BA ba.optimize, solver "chol" and "cg", on a 16-camera,
+               2048-point arc built by make_problem
+ 14. B4/B5 timing  each beside its plain version at config-#5 shapes
 
 Prints the kernels' JSON line, then, as the last line,
 {"ok": true, "device": {...}}. Exits non-zero with no result line when
@@ -36,6 +47,10 @@ BLUR_ATOL = 1e-6
 MIN_DESC_BIT_AGREEMENT = 0.995
 PRIOR_OFFSET_M = np.array([0.2, -0.15, 0.15])  # 0.29 m off the true centre
 PRIOR_OFFSET_DEG = 10.0
+# B4 adds with float atomics: the JAX package's bar between its reduce kernel
+# and its XLA version (tests/test_pallas_kernels.py:46-48). B5 copies: exact.
+REDUCE_RTOL, REDUCE_ATOL = 1e-5, 1e-4
+CONFIG5 = dict(K=5000, P=1 << 20, Q=4, n_iters=5, cg_iters=8, lm_lambda=1e-2)
 
 
 def log(msg):
@@ -75,9 +90,8 @@ def device_ms(fn, iters=50, tries=3) -> tuple[float, str]:
 
     "profiler": the summed time of every CUDA kernel and copy it runs, from
     torch.profiler, over `iters` calls. A profiler window that recorded no
-    device activity is taken again; after `tries` empty windows, "queued":
-    CUDA events around `iters` calls queued behind a device-side sleep, so
-    they run back to back (includes the ~1 us gaps between launches)."""
+    device activity is taken again; after `tries` empty windows, "queued"
+    (queued_ms)."""
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
@@ -88,6 +102,16 @@ def device_ms(fn, iters=50, tries=3) -> tuple[float, str]:
         us = sum(_device_us(e) for e in prof.key_averages())
         if us > 0:
             return us / 1e3 / iters, "profiler"
+    return queued_ms(fn, iters), "queued"
+
+
+def queued_ms(fn, iters=50) -> float:
+    """Device time of one fn() call in ms: CUDA events around `iters` calls
+    queued behind a device-side sleep, so they run back to back (includes
+    the ~1 us gaps between launches). Needs no profiler, so it cannot miss
+    kernels the way a profiler window that drops events does."""
+    fn()
+    torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda._sleep(int(2e8))  # ~0.1 s: the host queues every call meanwhile
     start.record()
@@ -95,7 +119,7 @@ def device_ms(fn, iters=50, tries=3) -> tuple[float, str]:
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters, "queued"
+    return start.elapsed_time(end) / iters
 
 
 def smooth_noise(h, w, seed):
@@ -147,6 +171,144 @@ class FrameList:
 
     def frames(self, start=0, stop=None):
         yield from self._frames[start:stop]
+
+
+def seg_inputs(C, N, K, rng, case="uniform"):
+    """(data (C,N), cam (N,), x (C,K)) as NumPy. "ragged": some ids >= K and
+    < 0. "hot": 90% of the slots on 3 cameras, with dyadic data (multiples of
+    1/256) whose partial sums are exact in f32, so any order gives the same
+    bits."""
+    cam = rng.integers(0, K, N).astype(np.int32)
+    data = rng.normal(size=(C, N)).astype(np.float32)
+    if case == "ragged":
+        cam[::7], cam[::11] = K + 3, -1
+    elif case == "hot":
+        hot = rng.uniform(size=N) < 0.9
+        cam[hot] = np.array([7, 1234, K - 1], np.int32)[rng.integers(0, 3, int(hot.sum()))]
+        data = (rng.integers(-1024, 1024, (C, N)) / 256).astype(np.float32)
+    return data, cam, rng.normal(size=(C, K)).astype(np.float32)
+
+
+def seg_phases(dev, smi) -> dict:
+    """Phases 10-14: kernels B4/B5 and the bundle-adjustment back-end."""
+    from visual_slam_tpu_torch import large_map
+    from visual_slam_tpu_torch.models import ba, ba_large
+    from visual_slam_tpu_torch.ops.kernels import seg_kernel
+    from visual_slam_tpu_torch.utils.synthetic import arc_problem, build_loop_map
+
+    # 10. B4/B5 vs plain on the card
+    K5, N5 = CONFIG5["K"], CONFIG5["P"] * CONFIG5["Q"]
+    rng = np.random.default_rng(10)
+    err = {"cam_reduce": 0.0, "cam_expand": 0.0}
+    for C, N, K, case in [(27, N5, K5, "uniform"), (6, N5, K5, "uniform"), (12, N5, K5, "uniform"),
+                          (27, 4097, 257, "ragged"),
+                          (5, 100003, 257, "ragged"), (27, N5, K5, "hot")]:
+        data, cam, x = seg_inputs(C, N, K, rng, case)
+        d, c, xt = (torch.from_numpy(a).to(dev) for a in (data, cam, x))
+        rk, rp = seg_kernel.cam_reduce(d, c, K), seg_kernel.cam_reduce_torch(d, c, K)
+        ek, ep = seg_kernel.cam_expand(xt, c), seg_kernel.cam_expand_torch(xt, c)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(rk, rp, rtol=REDUCE_RTOL, atol=REDUCE_ATOL)
+        if case == "hot" and not torch.equal(rk, rp):
+            raise AssertionError("B4 hot cameras: exact (dyadic) sums differ from the plain version")
+        if not torch.equal(ek, ep):
+            raise AssertionError(f"B5 ({C},{K})->({C},{N}) {case}: not bit-equal to the plain version")
+        rerr = (rk - rp).abs().max().item()
+        if case != "ragged":
+            err["cam_reduce"] = max(err["cam_reduce"], rerr)
+        log(f"[B4/B5] {case} C={C} N={N} K={K}: reduce max_abs_err {rerr:.3g} "
+            f"(max |sum| {rp.abs().max().item():.4g}, bit-equal {torch.equal(rk, rp)}); "
+            f"expand bit-equal")
+        del d, c, xt, rk, rp, ek, ep
+
+    # 11. config #5 at full scale through the large-map entry point
+    t0 = time.perf_counter()
+    prob, gt = build_loop_map(CONFIG5["K"], CONFIG5["P"], CONFIG5["Q"], seed=0, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n, g = CONFIG5["n_iters"], CONFIG5["cg_iters"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    seg_kernel.reduce_launches = 0
+    seg_kernel.expand_launches = 0
+    res, _ = large_map.run(prob, gt, n, g, CONFIG5["lm_lambda"])
+    launches = {"cam_reduce": seg_kernel.reduce_launches, "cam_expand": seg_kernel.expand_launches}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    large_map.check(res)
+    # Per optimize: B4 n(g+2), B5 1 + n(g+3); the run makes two optimize
+    # calls and evaluates the starting cost once more (one B5 launch).
+    per_opt = {"cam_reduce": n * (g + 2), "cam_expand": 1 + n * (g + 3)}
+    want = {"cam_reduce": 2 * per_opt["cam_reduce"], "cam_expand": 2 * per_opt["cam_expand"] + 1}
+    if res["launches_per_optimize"] != per_opt or launches != want:
+        raise AssertionError(f"large map: launches {launches} (per optimize "
+                             f"{res['launches_per_optimize']}), expected {want} ({per_opt})")
+    log(f"[large map] K={res['keyframes']} P={res['landmarks']} N={res['observations']}: "
+        f"map built in {build_s:.2f} s; cost {res['cost_before']:.1f} -> {res['cost_after']:.1f} "
+        f"(bar < {large_map.COST_DROP} x start), max |t err| {res['max_t_err_m_before']:.5f} -> "
+        f"{res['max_t_err_m']:.5f} m")
+    log(f"[large map] {res['iters_per_s']:.3f} LM iters/s warm ({res['wall_s_warm']:.4f} s for "
+        f"{n} iters x {g} CG), first run {res['wall_s_first']:.4f} s, peak memory {peak_gb:.3f} GB; "
+        f"launches {launches} = 2 x {per_opt} + 1 expand (starting cost); {smi}")
+    log(f"[large map] first vs warm run of the same optimize: cost {res['cost_after_first']!r} vs "
+        f"{res['cost_after']!r}, difference {res['cost_after'] - res['cost_after_first']:.6g} "
+        f"(B4's float atomics add in a run-dependent order)")
+
+    # 12. where one warm LM solve's time goes
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, cost = ba_large.optimize(prob, n_iters=n, cg_iters=g, init_lambda=CONFIG5["lm_lambda"])
+        float(cost)
+        wall = time.perf_counter() - t0
+    rows = [(e.key, _device_us(e), e.count) for e in prof.key_averages() if _device_us(e) > 0]
+    dev_ms = sum(r[1] for r in rows) / 1e3
+    log(f"[LM trace] one warm optimize ({n} LM iters): {dev_ms:.3f} ms device time, "
+        f"{sum(r[2] for r in rows)} device ops, {1e3 * wall:.3f} ms wall (profiled): "
+        f"device busy share {dev_ms / (1e3 * wall):.3f}")
+    for key, us, count in sorted(rows, key=lambda r: -r[1])[:10]:
+        log(f"[LM trace]   {us / 1e3:9.4f} ms {count:5d}x  {key[:90]}")
+    del prob, gt, prof
+
+    # 13. the online solver on a 16-camera arc
+    for solver in ("chol", "cg"):
+        p16, _ = arc_problem(16, 2048, 0.5, 0.02, 0.03, seed=1, device=dev)
+        cost0 = float(ba._cost(p16))
+        seg_kernel.reduce_launches = 0
+        seg_kernel.expand_launches = 0
+        t0 = time.perf_counter()
+        out, cost = ba.optimize(p16, n_iters=10, cg_iters=12, solver=solver)
+        cost1 = float(cost)
+        wall = time.perf_counter() - t0
+        counts = (seg_kernel.reduce_launches, seg_kernel.expand_launches)
+        log(f"[online BA] {solver}: K=16 P=2048 N={p16.cam.shape[0]}: cost {cost0:.2f} -> {cost1:.2f} "
+            f"in {1e3 * wall:.2f} ms, launches B4 {counts[0]} B5 {counts[1]}")
+        if not (np.isfinite(cost1) and cost1 < 0.05 * cost0):
+            raise AssertionError(f"online BA {solver}: cost {cost0} -> {cost1}")
+        if counts != (10, 1 + 2 * 10):
+            raise AssertionError(f"online BA {solver}: launches {counts}, expected (10, 21)")
+
+    # 14. B4/B5 beside their plain versions at config-#5 shapes, in turns.
+    #     Queued CUDA events give the times: on an H100, a profiler window
+    #     was seen to keep ~1 of 20 B4 launches and read 0.0071 ms (14 TB/s).
+    #     The profiler's sum is printed beside them.
+    times = {}
+    for name, C in [("B4", 27), ("B4", 6), ("B5", 12), ("B5", 6)]:
+        data, cam, x = seg_inputs(C, N5, K5, rng)
+        d, c, xt = (torch.from_numpy(a).to(dev) for a in (data, cam, x))
+        if name == "B4":
+            kernel_fn, plain_fn = (lambda: seg_kernel.cam_reduce(d, c, K5),
+                                   lambda: seg_kernel.cam_reduce_torch(d, c, K5))
+        else:
+            kernel_fn, plain_fn = (lambda: seg_kernel.cam_expand(xt, c),
+                                   lambda: seg_kernel.cam_expand_torch(xt, c))
+        p1, k1, k2, p2 = (queued_ms(f, iters=20) for f in (plain_fn, kernel_fn, kernel_fn, plain_fn))
+        kms, pms = min(k1, k2), min(p1, p2)
+        kprof, pprof = device_ms(kernel_fn, iters=20)[0], device_ms(plain_fn, iters=20)[0]
+        mb = 4 * C * N5 / 1e6
+        log(f"[timing] {name} C={C} N={N5} K={K5}: kernel {kms:.4f} ms, plain {pms:.4f} ms device "
+            f"(queued events; profiler sums {kprof:.4f} / {pprof:.4f} ms); {mb:.0f} MB of rows: "
+            f"kernel at {mb / kms / 1e3:.3f} TB/s; {smi}")
+        times.setdefault(name, (kms, pms))
+        del d, c, xt
+    return {"launches": launches, "err": err, "times": times}
 
 
 def main() -> int:
@@ -316,6 +478,8 @@ def main() -> int:
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:8]:
         log(f"[profile]   {us / 1e3 / n_prof:8.4f} ms/frame {count / n_prof:6.1f}/frame  {key[:90]}")
 
+    seg = seg_phases(dev, smi)
+
     kernels = [
         dict(name="detect_blur", route="cuda", source="visual_slam_tpu_torch/csrc/detect_blur.cu",
              replaces="visual_slam_tpu/ops/pallas/detect_kernel.py:123",
@@ -325,6 +489,14 @@ def main() -> int:
              replaces="visual_slam_tpu/ops/pallas/patch_kernel.py:32",
              launches=launches["patch"], max_abs_err=b3_err,
              ms=times["B3"][0], plain_ms=times["B3"][1]),
+        dict(name="cam_reduce", route="cuda", source="visual_slam_tpu_torch/csrc/seg.cu",
+             replaces="visual_slam_tpu/ops/pallas/seg_kernel.py:55",
+             launches=seg["launches"]["cam_reduce"], max_abs_err=seg["err"]["cam_reduce"],
+             ms=seg["times"]["B4"][0], plain_ms=seg["times"]["B4"][1]),
+        dict(name="cam_expand", route="cuda", source="visual_slam_tpu_torch/csrc/seg.cu",
+             replaces="visual_slam_tpu/ops/pallas/seg_kernel.py:83",
+             launches=seg["launches"]["cam_expand"], max_abs_err=seg["err"]["cam_expand"],
+             ms=seg["times"]["B5"][0], plain_ms=seg["times"]["B5"][1]),
     ]
     log(smi)
     log(json.dumps({"kernels": kernels}))

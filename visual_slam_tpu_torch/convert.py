@@ -2,7 +2,8 @@
 
 SLAM has no learned weights. What both implementations must share is:
 the constant descriptor tables (PATTERN, _D, _WX, _WY), a map snapshot
-(xyz, desc, valid), a frame's features (uv, desc, score, valid) and poses.
+(xyz, desc, valid), a frame's features (uv, desc, score, valid), poses,
+and a bundle-adjustment problem (BAProblem).
 Each `from_jax_*` takes those as NumPy arrays — what `np.asarray` of the
 JAX values gives — and returns the port's tensors on `device`.
 
@@ -15,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .models.ba import BAProblem
 from .models.frontend import Features
 
 
@@ -64,3 +66,26 @@ def from_jax_snapshot(xyz, desc, valid, device) -> dict:
 
 def from_jax_pose(R, t, device) -> tuple[torch.Tensor, torch.Tensor]:
     return _f32(R, device), _f32(t, device)
+
+
+_BA_INT = {"cam", "se_i", "se_j"}
+
+
+def from_jax_ba_problem(fields, device) -> BAProblem:
+    """A bundle-adjustment problem of the JAX package, given as NumPy arrays
+    (a mapping of field name to array, or any NamedTuple with the fields of
+    BAProblem, such as `jax.tree.map(np.asarray, prob)`), as the port's
+    BAProblem on `device`: the index fields int32, `cam_fixed` bool, the
+    rest float32. Both packages then solve the same problem."""
+    f = fields._asdict() if hasattr(fields, "_asdict") else dict(fields)
+    out = {}
+    for name in BAProblem._fields:
+        a = np.asarray(f[name])
+        dtype = np.int32 if name in _BA_INT else bool if name == "cam_fixed" else np.float32
+        out[name] = torch.from_numpy(np.array(a, dtype)).to(device)
+    return BAProblem(**out)
+
+
+def to_numpy_ba_problem(p: BAProblem) -> dict[str, np.ndarray]:
+    """The inverse of from_jax_ba_problem: field name -> NumPy array."""
+    return {name: getattr(p, name).detach().cpu().numpy() for name in BAProblem._fields}

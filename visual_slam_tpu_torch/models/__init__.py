@@ -1,1 +1,1 @@
-"""Front-end and map state."""
+"""Front-end, map state, and bundle adjustment (online and large-map)."""

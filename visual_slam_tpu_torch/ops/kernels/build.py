@@ -33,13 +33,17 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC",
 ]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C entry point -> argtypes. Every entry returns cudaGetLastError().
 _SIGNATURES = {
     # img, peaks, blur (NULL = no blur), H, W, border, g0..g4, stream, device
     "vslam_detect_blur": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _P, _I],
     # img, uv, patches, H, W, K, stream, device
     "vslam_patch": [_P, _P, _P, _I, _I, _I, _P, _I],
+    # data, cam, out (zeroed), C, N, K, stream, device
+    "vslam_cam_reduce": [_P, _P, _P, _I, _L, _I, _P, _I],
+    # x, cam, out, C, N, K, stream, device
+    "vslam_cam_expand": [_P, _P, _P, _I, _L, _I, _P, _I],
 }
 
 build_seconds: float | None = None  # wall time of the last cold build

@@ -57,3 +57,29 @@ def se3_exp(xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     V = eye + b * W + c * W2
     t = (V @ v[..., None])[..., 0]
     return R, t
+
+
+def scale_edge_terms(R, t, i, j, meas):
+    """Closed-form scale-edge residuals and Jacobians (port of
+    visual_slam_tpu/ops/lie.py:171-195), used by bundle adjustment.
+
+    g2o's EdgeSBAScale (reference LocalBA.py:115-131): r_e = ||t_rel|| -
+    meas with t_rel = t_i - R_i R_j^T t_j. The rotational derivative
+    vanishes exactly, so J_i = [0_3, u], J_j = [0_3, -R_rel^T u] with
+    u = t_rel / ||t_rel||.
+
+    Args: R (K,3,3), t (K,3), edge endpoints i/j (E,), meas (E,).
+    Returns (r (E,), Ji (E,6), Jj (E,6)).
+    """
+    i, j = i.long(), j.long()
+    Ri, ti = R[i], t[i]
+    Rj, tj = R[j], t[j]
+    R_rel = torch.einsum("eab,ecb->eac", Ri, Rj)  # R_i R_j^T
+    t_rel = ti - torch.einsum("eab,eb->ea", R_rel, tj)
+    nrm = torch.sqrt(torch.sum(t_rel * t_rel, dim=-1) + 1e-12)
+    r = nrm - meas
+    u = t_rel / nrm[:, None]
+    zeros = torch.zeros_like(u)
+    Ji = torch.cat([zeros, u], dim=-1)
+    Jj = torch.cat([zeros, -torch.einsum("eab,ea->eb", R_rel, u)], dim=-1)
+    return r, Ji, Jj

@@ -1,1 +1,1 @@
-"""NumPy utilities: evaluation, synthetic scene, stage timers."""
+"""Utilities: evaluation, synthetic scene and BA problems, stage timers."""
