@@ -11,8 +11,11 @@ Phases, each raising on failure:
                checkerboard (plateau ties)
   4. B3        patch kernel vs its plain version, bit-exact, K=1024
   5. frontend  the whole front-end on the card vs the port's CPU path
-  6. slice     run_sequence over 60 synthetic RGB-D frames at 640x480,
-               K=1024, M=2048: ATE, failures, kernel launch counts, times
+  6. RGB-D     the SLAM loop, run_sequence over 60 synthetic RGB-D frames
+               at 640x480, K=1024, M=2048: keyframes with depth mining and
+               BA (use_depth, CG-12 x 10 LM) on B4/B5; ATE, failures,
+               keyframes, applied BAs, every kernel's launch count, times;
+               B4/B5 vs their plain versions at that BA's shapes
   7. ransac    one frame tracked from a prior ~0.3 m / 10 deg off
   8. timing    each kernel beside its plain version at the path's shapes
   9. profile   device time per tracked frame, by kernel (torch.profiler)
@@ -27,21 +30,41 @@ Phases, each raising on failure:
  13. online BA ba.optimize, solver "chol" and "cg", on a 16-camera,
                2048-point arc built by make_problem
  14. B4/B5 timing  each beside its plain version at config-#5 shapes
+ 15. monocular the SLAM loop on every 2nd frame, 90 frames at 640x480:
+               two-view init (512 essential hypotheses), triangulated
+               mining, BA; init frame, keyframes, applied BAs, failures,
+               Sim3 ATE, every kernel's launch count, times
+ 16. init/mine init_step and mine_step on the card vs the port's CPU path
+               on the same features and the same minimal sets
 
 Prints the kernels' JSON line, then, as the last line,
 {"ok": true, "device": {...}}. Exits non-zero with no result line when
 there is no CUDA card. Imports nothing of JAX.
 """
 import json
+import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
 
 FRAMES = 60
 ATE_LIMIT_M = 0.02  # the 200-frame ATE bar of PARITY.md
+MONO_STRIDE, MONO_FRAMES = 2, 90  # every 2nd frame, 90 processed
+# The JAX package's Slam on the same monocular sequence (CPU): init at frame
+# 18, keyframes at 0/18/60/102/144, 7 BAs, Sim3 ATE 0.00345 m.
+MONO_INIT_FRAME = 18
+MIN_MONO_KEYFRAMES, MIN_MONO_BA = 3, 5
+# init_step / mine_step on the card vs on the CPU, float32 eigh and SVD in
+# cuSOLVER vs LAPACK: R, t (the CPU parity bar of tests/test_torch_twoview.py),
+# median parallax (degrees), and triangulated points as pixels: reprojected
+# into either camera, the card's and the CPU's point land this close. A
+# point's disagreement along its ray grows as 1/parallax (up to 7.7e-4 of its
+# range on the init pair, on an H100) but moves its image by parallax x that.
+GEOM_POSE_ATOL, GEOM_PARALLAX_ATOL, GEOM_REPROJ_PX = 1e-4, 1e-3, 0.02
 PEAK_RTOL = 1e-5
 BLUR_ATOL = 1e-6
 MIN_DESC_BIT_AGREEMENT = 0.995
@@ -173,6 +196,91 @@ class FrameList:
         yield from self._frames[start:stop]
 
 
+def count_syncs(fn) -> int:
+    """Host-device synchronisations in one fn() call, counted by torch's
+    sync-debug mode (one warning per synchronising call)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize", "cudaMemcpy")
+
+
+def runtime_syncs(fn) -> int:
+    """Host-blocking CUDA runtime calls (stream, device or event
+    synchronise, blocking cudaMemcpy) in one fn() call, read from a
+    torch.profiler trace of the runtime API."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+    return sum(e.count for e in prof.key_averages() if e.key in SYNC_CALLS)
+
+
+def kernel_counts() -> dict:
+    from visual_slam_tpu_torch.ops.kernels import detect_kernel, patch_kernel, seg_kernel
+
+    return {"detect_blur": detect_kernel.launches, "patch": patch_kernel.launches,
+            "cam_reduce": seg_kernel.reduce_launches, "cam_expand": seg_kernel.expand_launches}
+
+
+def zero_kernel_counts() -> None:
+    from visual_slam_tpu_torch.ops.kernels import detect_kernel, patch_kernel, seg_kernel
+
+    detect_kernel.launches = patch_kernel.launches = 0
+    seg_kernel.reduce_launches = seg_kernel.expand_launches = 0
+
+
+def run_slam(frames, cfg, dev):
+    """run_sequence on the card with every kernel count set to 0 just before
+    and read just after. Returns (slam, wall seconds, launches)."""
+    from visual_slam_tpu_torch.pipeline import run_sequence
+
+    torch.cuda.synchronize()
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    slam = run_sequence(FrameList(frames), cfg, device=dev)
+    torch.cuda.synchronize()
+    return slam, time.perf_counter() - t0, kernel_counts()
+
+
+def check_slam_launches(name, slam, n_frames, launches):
+    """B1 and B3 once per frame; per BA step B4 once per LM iteration and B5
+    2 x iterations + 3 times (cost before, starting cost, per iteration the
+    build and the candidate's cost, reprojection errors after); B5 once more
+    per monocular init quality gate."""
+    st = slam.stats
+    n_ba = st["ba_runs"] + st["ba_dropped_stale"] + st["ba_rejected"] + (slam._pending_ba is not None)
+    gates = 0 if slam.cfg.use_depth else st["init_rollbacks"] + (st["init_frame"] is not None)
+    it = slam.cfg.ba.iters
+    want = {"detect_blur": n_frames, "patch": n_frames, "cam_reduce": it * n_ba,
+            "cam_expand": (2 * it + 3) * n_ba + gates}
+    if launches != want or n_ba == 0:
+        raise AssertionError(f"{name}: launches {launches}, expected {want} ({n_ba} BA steps)")
+    return n_ba
+
+
+def slam_report(name, slam, n_frames, wall, launches, n_ba, ate, smi):
+    summ = slam.timers.summary()
+    med = lambda k: f"{summ[k]['median_ms']:.3f} ms ({summ[k]['calls']} calls)" if k in summ else "none"
+    st = slam.stats
+    log(f"[{name}] {n_frames} frames: {n_frames / wall:.2f} frames/s ({wall:.3f} s wall), "
+        f"ATE {ate:.6f} m (limit {ATE_LIMIT_M}), init frame {st['init_frame']}, "
+        f"keyframes at {[f.frame_idx for f in slam.trajectory if f.is_keyframe]}; {smi}")
+    log(f"[{name}] median per call: extract {med('extract')}, track {med('track')}, "
+        f"init attempt {med('initialize')}, keyframe insertion {med('kf_insert')}, "
+        f"BA solve {med('ba_solve')}; BA {slam.ba_iters_per_s():.2f} LM iters/s")
+    log(f"[{name}] BA steps {n_ba}: applied {st['ba_runs']}, dropped {st['ba_dropped_stale']}, "
+        f"rejected {st['ba_rejected']}; launches {launches}; stats {st}")
+
+
 def seg_inputs(C, N, K, rng, case="uniform"):
     """(data (C,N), cam (N,), x (C,K)) as NumPy. "ragged": some ids >= K and
     < 0. "hot": 90% of the slots on 3 cameras, with dyadic data (multiples of
@@ -189,7 +297,7 @@ def seg_inputs(C, N, K, rng, case="uniform"):
     return data, cam, rng.normal(size=(C, K)).astype(np.float32)
 
 
-def seg_phases(dev, smi) -> dict:
+def seg_phases(dev, smi) -> None:
     """Phases 10-14: kernels B4/B5 and the bundle-adjustment back-end."""
     from visual_slam_tpu_torch import large_map
     from visual_slam_tpu_torch.models import ba, ba_large
@@ -199,7 +307,6 @@ def seg_phases(dev, smi) -> dict:
     # 10. B4/B5 vs plain on the card
     K5, N5 = CONFIG5["K"], CONFIG5["P"] * CONFIG5["Q"]
     rng = np.random.default_rng(10)
-    err = {"cam_reduce": 0.0, "cam_expand": 0.0}
     for C, N, K, case in [(27, N5, K5, "uniform"), (6, N5, K5, "uniform"), (12, N5, K5, "uniform"),
                           (27, 4097, 257, "ragged"),
                           (5, 100003, 257, "ragged"), (27, N5, K5, "hot")]:
@@ -214,8 +321,6 @@ def seg_phases(dev, smi) -> dict:
         if not torch.equal(ek, ep):
             raise AssertionError(f"B5 ({C},{K})->({C},{N}) {case}: not bit-equal to the plain version")
         rerr = (rk - rp).abs().max().item()
-        if case != "ragged":
-            err["cam_reduce"] = max(err["cam_reduce"], rerr)
         log(f"[B4/B5] {case} C={C} N={N} K={K}: reduce max_abs_err {rerr:.3g} "
             f"(max |sum| {rp.abs().max().item():.4g}, bit-equal {torch.equal(rk, rp)}); "
             f"expand bit-equal")
@@ -289,7 +394,6 @@ def seg_phases(dev, smi) -> dict:
     #     Queued CUDA events give the times: on an H100, a profiler window
     #     was seen to keep ~1 of 20 B4 launches and read 0.0071 ms (14 TB/s).
     #     The profiler's sum is printed beside them.
-    times = {}
     for name, C in [("B4", 27), ("B4", 6), ("B5", 12), ("B5", 6)]:
         data, cam, x = seg_inputs(C, N5, K5, rng)
         d, c, xt = (torch.from_numpy(a).to(dev) for a in (data, cam, x))
@@ -306,9 +410,109 @@ def seg_phases(dev, smi) -> dict:
         log(f"[timing] {name} C={C} N={N5} K={K5}: kernel {kms:.4f} ms, plain {pms:.4f} ms device "
             f"(queued events; profiler sums {kprof:.4f} / {pprof:.4f} ms); {mb:.0f} MB of rows: "
             f"kernel at {mb / kms / 1e3:.3f} TB/s; {smi}")
-        times.setdefault(name, (kms, pms))
         del d, c, xt
-    return {"launches": launches, "err": err, "times": times}
+
+
+def reproj_px(Xa, Xb, poses, intr, mask) -> float:
+    """Largest pixel distance between the images of two point sets (CPU
+    tensors) in any of the cameras `poses`, over `mask`."""
+    from visual_slam_tpu_torch.ops import projection
+
+    return max(float((projection.project(R, t, Xa, intr)[0] - projection.project(R, t, Xb, intr)[0])
+                     .norm(dim=-1)[mask].max()) for R, t in poses)
+
+
+def mono_phases(dev, smi) -> None:
+    """Phases 15-16: the monocular SLAM loop, and init_step / mine_step on
+    the card against the port's CPU path."""
+    from visual_slam_tpu_torch.config import SlamConfig
+    from visual_slam_tpu_torch.models import frontend
+    from visual_slam_tpu_torch.ops import match, ransac
+    from visual_slam_tpu_torch.pipeline import init_step, mine_step
+    from visual_slam_tpu_torch.utils.evaluate import ate_rmse
+    from visual_slam_tpu_torch.utils.scene import SyntheticRGBDScene
+
+    # 15. the monocular SLAM loop at full width
+    n_total = MONO_STRIDE * (MONO_FRAMES - 1) + 1
+    scene = SyntheticRGBDScene(n_total)
+    t0 = time.perf_counter()
+    frames = [(i, scene.render(i)[0], None) for i in range(0, n_total, MONO_STRIDE)]
+    log(f"[mono] rendered {len(frames)} frames in {time.perf_counter() - t0:.1f} s")
+    slam, wall, launches = run_slam(frames, SlamConfig(), dev)
+    idxs, est = slam.positions()
+    if not np.isfinite(est).all():
+        raise AssertionError("mono: non-finite poses")
+    ate, _ = ate_rmse(est, scene.ground_truth()[idxs, :3, 3], align_scale=True)
+    n_ba = check_slam_launches("mono", slam, MONO_FRAMES, launches)
+    slam_report("mono", slam, MONO_FRAMES, wall, launches, n_ba, ate, smi)
+    st = slam.stats
+    if st["init_frame"] != MONO_INIT_FRAME:
+        raise AssertionError(f"mono: init at frame {st['init_frame']}, the reference's is {MONO_INIT_FRAME}")
+    if st["keyframes"] < MIN_MONO_KEYFRAMES or st["ba_runs"] < MIN_MONO_BA:
+        raise AssertionError(f"mono: {st['keyframes']} keyframes inserted, {st['ba_runs']} BAs applied")
+    if st["track_failures"] != 0 or ate >= ATE_LIMIT_M:
+        raise AssertionError(f"mono: {st['track_failures']} track failures, Sim3 ATE {ate} m")
+
+    # 16. init_step and mine_step on the card vs the CPU: the same CPU
+    #     features, the same minimal sets
+    cfg = SlamConfig()
+    fc = {i: frontend.extract(torch.from_numpy(scene.render(i)[0]), 1024) for i in (0, MONO_INIT_FRAME, 30)}
+    fg = {i: frontend.Features(*(a.to(dev) for a in f)) for i, f in fc.items()}
+    intr = torch.as_tensor(cfg.intrinsics)
+    fq = cfg.frontend
+    _, _, good = match.match_ratio_test(fc[0].desc, fc[MONO_INIT_FRAME].desc, fc[0].valid,
+                                        fc[MONO_INIT_FRAME].valid, ratio=fq.match_ratio,
+                                        max_distance=fq.max_hamming)
+    idx = ransac.sample_minimal_sets(torch.Generator().manual_seed(0), 512, 8, good)
+    kw = dict(ratio=fq.match_ratio, max_hamming=fq.max_hamming,
+              ess_threshold=cfg.twoview.ess_threshold_factor / float(cfg.intrinsics[0]),
+              distance_thresh=cfg.twoview.distance_thresh, n_hyps=512,
+              min_flow_px=cfg.twoview.min_flow_px)
+    poses = {i: [torch.from_numpy(a.astype(np.float32)) for a in scene.pose_cw(i)] for i in (0, 30)}
+    avail = fc[0].valid & (torch.arange(1024) % 3 != 0)
+    mkw = dict(ratio=fq.match_ratio, max_hamming=fq.max_hamming, reproj_thresh_px=4.0, max_depth=10.0,
+               min_parallax_deg=3.0)
+    pose_dev, intr_dev, idx_dev, avail_dev = ([a.to(dev) for a in poses[0] + poses[30]],
+                                              intr.to(dev), idx.to(dev), avail.to(dev))
+    calls = {  # the card's calls, inputs already on the card
+        "init_step": lambda: init_step(fg[0], fg[MONO_INIT_FRAME], intr_dev, **kw, ransac_idx=idx_dev),
+        "mine_step": lambda: mine_step(fg[0], avail_dev, fg[30], *pose_dev, intr_dev, **mkw),
+    }
+    ic = init_step(fc[0], fc[MONO_INIT_FRAME], intr, **kw, ransac_idx=idx)
+    ig = calls["init_step"]()
+    for name in ("n_matches", "idx2", "cheir", "frac"):
+        if not torch.equal(getattr(ig, name).cpu(), getattr(ic, name)):
+            raise AssertionError(f"init_step: {name} differs between card and CPU")
+    torch.testing.assert_close(ig.R.cpu(), ic.R, rtol=0, atol=GEOM_POSE_ATOL)
+    torch.testing.assert_close(ig.t.cpu(), ic.t, rtol=0, atol=GEOM_POSE_ATOL)
+    par_err = abs(float(ig.parallax) - float(ic.parallax))
+    x_rel = float(((ig.X1.cpu() - ic.X1).norm(dim=-1) / ic.X1.norm(dim=-1))[ic.cheir].max())
+    x_px = reproj_px(ig.X1.cpu(), ic.X1, [(torch.eye(3), torch.zeros(3)), (ic.R, ic.t)], intr, ic.cheir)
+    if par_err > GEOM_PARALLAX_ATOL or x_px > GEOM_REPROJ_PX or float(ic.frac) < cfg.twoview.min_valid_fraction:
+        raise AssertionError(f"init_step: parallax err {par_err}, points {x_px} px apart, frac {float(ic.frac)}")
+    mc = mine_step(fc[0], avail, fc[30], *poses[0], *poses[30], intr, **mkw)
+    mg = calls["mine_step"]()
+    for name in ("idx2", "keep", "keep_loose"):
+        if not torch.equal(getattr(mg, name).cpu(), getattr(mc, name)):
+            raise AssertionError(f"mine_step: {name} differs between card and CPU")
+    loose = mc.keep_loose
+    mx_rel = float(((mg.X.cpu() - mc.X).norm(dim=-1) / mc.X.norm(dim=-1))[loose].max())
+    mx_px = reproj_px(mg.X.cpu(), mc.X, [poses[0], poses[30]], intr, loose)
+    if mx_px > GEOM_REPROJ_PX or not 0 < int(mc.keep.sum()) < int(loose.sum()):
+        raise AssertionError(f"mine_step: points {mx_px} px apart, keep {int(mc.keep.sum())} "
+                             f"of {int(loose.sum())}")
+    cost = {name: (cuda_ms(fn, iters=10, warmup=2), device_ms(fn, iters=3)[0], count_syncs(fn))
+            for name, fn in calls.items()}
+    log(f"[init/mine] init_step (0, {MONO_INIT_FRAME}): {int(ic.n_matches)} matches, frac "
+        f"{float(ic.frac):.4f}, parallax {float(ic.parallax):.4f} deg, card vs CPU: idx2/cheir/frac "
+        f"equal, parallax err {par_err:.3g} deg, points apart by at most {x_rel:.3g} of their "
+        f"range and {x_px:.3g} px in either image")
+    log(f"[init/mine] mine_step (0, 30): keep {int(mc.keep.sum())}, loose {int(loose.sum())}, "
+        f"card vs CPU: masks equal, points apart by at most {mx_rel:.3g} of their range and "
+        f"{mx_px:.3g} px in either image")
+    for name, (ms, dev_ms, syncs) in cost.items():
+        log(f"[init/mine] {name}: {ms:.3f} ms per call, {dev_ms:.3f} ms device, {syncs} host "
+            f"syncs per call; {smi}")
 
 
 def main() -> int:
@@ -324,9 +528,9 @@ def main() -> int:
         f"python {sys.version.split()[0]} devices {torch.cuda.device_count()}")
 
     from visual_slam_tpu_torch.config import SlamConfig
-    from visual_slam_tpu_torch.models import frontend
-    from visual_slam_tpu_torch.ops.kernels import build, detect_kernel, patch_kernel
-    from visual_slam_tpu_torch.pipeline import Slam, run_sequence, track_step
+    from visual_slam_tpu_torch.models import ba, frontend
+    from visual_slam_tpu_torch.ops.kernels import build, detect_kernel, patch_kernel, seg_kernel
+    from visual_slam_tpu_torch.pipeline import Slam, ba_step, run_sequence, track_step
     from visual_slam_tpu_torch.utils.evaluate import ate_rmse
     from visual_slam_tpu_torch.utils.scene import SyntheticRGBDScene
 
@@ -385,35 +589,73 @@ def main() -> int:
     log(f"[frontend] uv/valid equal, score within rtol {PEAK_RTOL}, "
         f"{int(v.sum())} valid, descriptor bits equal {agree:.6f}")
 
-    # 6. the slice: run_sequence at full width on the card
+    # 6. the RGB-D SLAM loop at full width on the card
     cfg = SlamConfig(use_depth=True)
-    run_sequence(FrameList(rendered[:3]), SlamConfig(use_depth=True), device=dev)  # warm-up
-    torch.cuda.synchronize()
-    detect_kernel.launches = 0
-    patch_kernel.launches = 0
-    t0 = time.perf_counter()
-    slam = run_sequence(FrameList(rendered), cfg, device=dev)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"detect_blur": detect_kernel.launches, "patch": patch_kernel.launches}
+    run_sequence(FrameList(rendered[:26]), SlamConfig(use_depth=True), device=dev)  # warm-up, one BA
+    slam, wall, launches = run_slam(rendered, cfg, dev)
     idxs, est = slam.positions()
     if len(idxs) != FRAMES or not np.isfinite(est).all():
-        raise AssertionError(f"slice: {len(idxs)} poses, finite {np.isfinite(est).all()}")
-    gt = scene.ground_truth()[idxs, :3, 3]
-    ate, _ = ate_rmse(est, gt, align_scale=False)
-    summ = slam.timers.summary()
-    log(f"[slice] {FRAMES} frames 640x480 K={cfg.frontend.max_features} "
-        f"M={cfg.map.track_capacity}: ATE {ate:.6f} m (limit {ATE_LIMIT_M}), stats {slam.stats}")
-    log(f"[slice] extract median {summ['extract']['median_ms']:.3f} ms/frame, "
-        f"track median {summ['track']['median_ms']:.3f} ms/frame, "
-        f"{FRAMES / wall:.2f} frames/s ({wall:.3f} s wall), launches {launches}")
+        raise AssertionError(f"RGB-D: {len(idxs)} poses, finite {np.isfinite(est).all()}")
+    ate, _ = ate_rmse(est, scene.ground_truth()[idxs, :3, 3], align_scale=False)
+    n_ba = check_slam_launches("RGB-D", slam, FRAMES, launches)
+    slam_report("RGB-D", slam, FRAMES, wall, launches, n_ba, ate, smi)
     if ate >= ATE_LIMIT_M:
-        raise AssertionError(f"slice: ATE {ate} m >= {ATE_LIMIT_M}")
+        raise AssertionError(f"RGB-D: ATE {ate} m >= {ATE_LIMIT_M}")
     if slam.stats["track_failures"] != 0:
-        raise AssertionError(f"slice: {slam.stats['track_failures']} track failures")
-    for name, count in launches.items():
-        if count != FRAMES:
-            raise AssertionError(f"slice: kernel {name} launched {count} times for {FRAMES} frames")
+        raise AssertionError(f"RGB-D: {slam.stats['track_failures']} track failures")
+    if slam.stats["keyframes"] < 2 or slam.stats["ba_runs"] < 1:
+        raise AssertionError(f"RGB-D: {slam.stats['keyframes']} keyframes inserted, "
+                             f"{slam.stats['ba_runs']} BAs applied")
+    # Where a keyframe BA's time goes: one BA step on the run's final map,
+    # host time per call beside device time per call.
+    prob, _ = slam.map.to_ba_problem(cfg.intrinsics, depth_weight=cfg.ba.depth_weight, device=dev)
+    solve = lambda: ba_step(prob, cfg.ba.iters, cfg.ba.cg_iters, cfg.ba.solver, use_depth=True)
+    ba_wall = cuda_ms(solve, iters=5, warmup=1)
+    ba_dev, how = device_ms(solve, iters=5)
+    log(f"[RGB-D BA] one BA step on the final map (K={prob.R.shape[0]}, P={prob.X.shape[0]}, "
+        f"N={prob.cam.shape[0]}, {cfg.ba.iters} LM x {cfg.ba.cg_iters} CG): {ba_wall:.3f} ms per "
+        f"call, {ba_dev:.3f} ms device ({how}): device busy share {ba_dev / ba_wall:.3f}, "
+        f"{count_syncs(solve)} host syncs per call (torch's sync-debug mode); {smi}")
+    # The profiler's own window start may add a call: an empty window and
+    # one .item() are read beside the BA step.
+    empty, item = runtime_syncs(lambda: None), runtime_syncs(lambda: torch.ones(1, device=dev).sum().item())
+    log(f"[RGB-D BA] host-blocking runtime calls ({', '.join(SYNC_CALLS)}), profiler trace: "
+        f"one BA step {runtime_syncs(solve)}, an empty window {empty}, one .item() {item}")
+    # B4/B5 against their plain versions at the shapes that BA step gives
+    # them: the (42,N) U/g_c reduce over the final map's camera index and
+    # the (12,K) camera-table expand; timed in turns. That index puts
+    # thousands of slots on a few cameras (padding slots on camera 0), so
+    # the rows are dyadic (multiples of 1/256, as phase 10's hot cameras):
+    # their sums are exact in float32, and B4 must be bit-equal.
+    K6, N6 = prob.R.shape[0], prob.cam.shape[0]
+    rows = np.random.default_rng(6).integers(-1024, 1024, (42, N6)) / 256
+    rows = torch.from_numpy(rows.astype(np.float32)).to(dev)
+    hot = int(torch.bincount(prob.cam.long().clamp(0, K6)).max())
+    table = ba.cam_rows(prob)
+    path_fns = {
+        "B4": (lambda: seg_kernel.cam_reduce(rows, prob.cam, K6),
+               lambda: seg_kernel.cam_reduce_torch(rows, prob.cam, K6)),
+        "B5": (lambda: seg_kernel.cam_expand(table, prob.cam),
+               lambda: seg_kernel.cam_expand_torch(table, prob.cam)),
+    }
+    rk, rp = (f() for f in path_fns["B4"])
+    ek, ep = (f() for f in path_fns["B5"])
+    torch.cuda.synchronize()
+    if not torch.equal(rk, rp):
+        raise AssertionError(f"B4 (42,{N6})->(42,{K6}) on the BA path: exact (dyadic) sums differ "
+                             f"from the plain version by {(rk - rp).abs().max().item()}")
+    if not torch.equal(ek, ep):
+        raise AssertionError(f"B5 (12,{K6})->(12,{N6}) on the BA path: not bit-equal to the plain version")
+    path_err = {"cam_reduce": (rk - rp).abs().max().item(), "cam_expand": (ek - ep).abs().max().item()}
+    path_times = {}
+    for name, (kernel_fn, plain_fn) in path_fns.items():
+        p1, k1, k2, p2 = (queued_ms(f) for f in (plain_fn, kernel_fn, kernel_fn, plain_fn))
+        path_times[name] = (min(k1, k2), min(p1, p2))
+    log(f"[RGB-D BA] B4 (42,{N6})->(42,{K6}), up to {hot} slots on one camera: bit-equal on "
+        f"dyadic rows, kernel {path_times['B4'][0]:.4f} ms vs plain "
+        f"{path_times['B4'][1]:.4f} ms; B5 (12,{K6})->(12,{N6}): bit-equal, kernel "
+        f"{path_times['B5'][0]:.4f} ms vs plain {path_times['B5'][1]:.4f} ms (queued events); {smi}")
+    del rows, table, rk, rp, ek, ep
 
     # 7. the RANSAC branch: a prior ~0.3 m and 10 deg off the truth
     i = FRAMES // 2
@@ -471,14 +713,17 @@ def main() -> int:
         torch.cuda.synchronize()
     rows = [(e.key, _device_us(e), e.count) for e in prof.key_averages() if _device_us(e) > 0]
     dev_ms = sum(r[1] for r in rows) / 1e3 / n_prof
-    wall_ms = 1e3 * wall / FRAMES
+    frame_syncs = count_syncs(lambda: pslam.process(*rendered[1 + n_prof]))
+    wall_ms = statistics.median(slam.timers.ms["extract"]) + statistics.median(slam.timers.ms["track"])
     log(f"[profile] {n_prof} tracked frames: {dev_ms:.3f} ms/frame of device time, "
-        f"{sum(r[2] for r in rows) / n_prof:.0f} device ops/frame; against {wall_ms:.3f} ms/frame "
-        f"wall in phase 6: device busy share {dev_ms / wall_ms:.3f}")
+        f"{sum(r[2] for r in rows) / n_prof:.0f} device ops/frame; against the median extract + "
+        f"track {wall_ms:.3f} ms/frame of phase 6: device busy share {dev_ms / wall_ms:.3f}; "
+        f"{frame_syncs} host syncs in the next tracked frame")
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:8]:
         log(f"[profile]   {us / 1e3 / n_prof:8.4f} ms/frame {count / n_prof:6.1f}/frame  {key[:90]}")
 
-    seg = seg_phases(dev, smi)
+    seg_phases(dev, smi)
+    mono_phases(dev, smi)
 
     kernels = [
         dict(name="detect_blur", route="cuda", source="visual_slam_tpu_torch/csrc/detect_blur.cu",
@@ -491,12 +736,12 @@ def main() -> int:
              ms=times["B3"][0], plain_ms=times["B3"][1]),
         dict(name="cam_reduce", route="cuda", source="visual_slam_tpu_torch/csrc/seg.cu",
              replaces="visual_slam_tpu/ops/pallas/seg_kernel.py:55",
-             launches=seg["launches"]["cam_reduce"], max_abs_err=seg["err"]["cam_reduce"],
-             ms=seg["times"]["B4"][0], plain_ms=seg["times"]["B4"][1]),
+             launches=launches["cam_reduce"], max_abs_err=path_err["cam_reduce"],
+             ms=path_times["B4"][0], plain_ms=path_times["B4"][1]),
         dict(name="cam_expand", route="cuda", source="visual_slam_tpu_torch/csrc/seg.cu",
              replaces="visual_slam_tpu/ops/pallas/seg_kernel.py:83",
-             launches=seg["launches"]["cam_expand"], max_abs_err=seg["err"]["cam_expand"],
-             ms=seg["times"]["B5"][0], plain_ms=seg["times"]["B5"][1]),
+             launches=launches["cam_expand"], max_abs_err=path_err["cam_expand"],
+             ms=path_times["B5"][0], plain_ms=path_times["B5"][1]),
     ]
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -15,8 +15,9 @@ from visual_slam_tpu_torch.config import SlamConfig
 from visual_slam_tpu_torch.models import frontend
 from visual_slam_tpu_torch.models import ba, ba_large
 from visual_slam_tpu_torch.ops.kernels import detect_kernel, patch_kernel, seg_kernel
-from visual_slam_tpu_torch.pipeline import run_sequence
+from visual_slam_tpu_torch.pipeline import Slam, run_sequence
 from visual_slam_tpu_torch.utils import synthetic
+from visual_slam_tpu_torch.utils.evaluate import ate_rmse
 from visual_slam_tpu_torch.utils.scene import SyntheticRGBDScene
 
 pytestmark = pytest.mark.cuda
@@ -32,6 +33,11 @@ REDUCE_RTOL, REDUCE_ATOL = 1e-5, 1e-4
 # accept/reject rounds amplify it (the JAX package's sharded-identity bars,
 # tests/test_ba_large.py:41-46).
 BA_COST_RTOL, BA_T_ATOL, BA_X_ATOL = 1e-2, 1e-3, 1e-3
+# Sim3 ATE of the monocular run at 320x240, every 3rd frame: the JAX
+# package's Slam gets 0.0215 m; the port 0.0257 m on the CPU and 0.0197-
+# 0.0290 m in three runs on an H100 (0.0331 m with B4's reduce done on the
+# host instead).
+MONO_ATE_LIMIT_M = 0.05
 
 
 @pytest.fixture
@@ -105,6 +111,59 @@ def test_slice_card_matches_cpu(cuda):
         np.testing.assert_allclose(fg.t_cw, fc.t_cw, atol=POSE_ATOL)
         assert abs(fg.n_tracked - fc.n_tracked) <= 2
     assert runs[0].stats == runs[1].stats
+
+
+@pytest.mark.parametrize("mode", ["rgbd", "mono"])
+def test_slam_card_matches_cpu(cuda, mode):
+    """The whole SLAM loop at 320x240 (K=256, M=512) on the card and on the
+    CPU: RGB-D over 60 frames, monocular on every 3rd of 178.
+
+    RGB-D: init, keyframe and BA-apply frames agree, camera centres to
+    BA_T_ATOL. Monocular: the same holds, centres to POSE_ATOL, up to the
+    frame where the second BA applies. That BA (three keyframes, two free)
+    is chaotic in float32: B4's float atomics alone make two card runs
+    differ by up to 1.2e-2 m after it and move the fifth keyframe between
+    frames 150 and 156 (PERF.md), so from there on each run is held to the
+    same bars: keyframe count, BA count within one, no track failure, Sim3
+    ATE under MONO_ATE_LIMIT_M."""
+    intr = np.array([240.6, 240.0, 159.75, 119.75], np.float32)
+    n_frames, stride = (60, 1) if mode == "rgbd" else (178, 3)
+    scene = SyntheticRGBDScene(n_frames, 240, 320, intrinsics=intr)
+    frames = [(i, *scene.render(i)) for i in range(0, n_frames, stride)]
+    runs = []
+    for device in (cuda, "cpu"):
+        cfg = SlamConfig(use_depth=mode == "rgbd", intrinsics=intr)
+        cfg.frontend.max_features = 256
+        cfg.map.track_capacity = 512
+        slam = Slam(cfg, device=device)
+        applied = []
+        for i, gray, depth in frames:
+            slam.process(i, gray, depth if mode == "rgbd" else None)
+            applied.append(slam.stats["ba_runs"])
+        runs.append((slam, applied))
+    (sg, ag), (sc, ac) = runs
+    assert sg.stats["init_frame"] == sc.stats["init_frame"]
+    assert ac[-1] >= 2
+    # Monocular: poses agree before the second BA applies, decisions up to
+    # and including that frame.
+    n_pose = ac.index(2) if mode == "mono" else len(frames)
+    n_same = min(n_pose + 1, len(frames))
+    last = frames[n_same - 1][0]
+    assert ag[:n_same] == ac[:n_same]
+    kf_g, kf_c = ([f.frame_idx for f in s.trajectory if f.is_keyframe] for s in (sg, sc))
+    assert [k for k in kf_g if k <= last] == [k for k in kf_c if k <= last]
+    posed = {i for i, *_ in frames[:n_pose]}
+    tg, tc = ([f for f in s.trajectory if f.frame_idx in posed] for s in (sg, sc))
+    atol = BA_T_ATOL if mode == "rgbd" else POSE_ATOL
+    for fg, fc in zip(tg, tc, strict=True):
+        assert fg.frame_idx == fc.frame_idx
+        np.testing.assert_allclose(-fg.R_cw.T @ fg.t_cw, -fc.R_cw.T @ fc.t_cw, atol=atol)
+    if mode == "mono":
+        assert len(kf_g) == len(kf_c) and abs(ag[-1] - ac[-1]) <= 1
+        for s in (sg, sc):
+            idxs, est = s.positions()
+            ate, _ = ate_rmse(est, scene.ground_truth()[idxs, :3, 3], align_scale=True)
+            assert s.stats["track_failures"] == 0 and ate < MONO_ATE_LIMIT_M
 
 
 @pytest.mark.parametrize("C,N,K,case", [

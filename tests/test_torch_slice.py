@@ -50,8 +50,8 @@ def scene8():
 
 def test_slice_matches_jax(scene8):
     """8 frames of the RGB-D slice: per-frame R and t within POSE_ATOL,
-    n_tracked within N_TRACKED_TOL, and no keyframe candidate (checked on
-    the JAX side first: a keyframe insertion there is not ported)."""
+    n_tracked within N_TRACKED_TOL, and no keyframe inserted on either side
+    (tests/test_torch_slam.py runs the keyframe path)."""
     scene, frames = scene8
     jcfg, tcfg = _configs()
     jslam = JSlam(jcfg)
@@ -65,7 +65,7 @@ def test_slice_matches_jax(scene8):
     assert jslam.stats.get("track_failures", 0) == 0
 
     tslam = run_sequence(scene, tcfg, 0, 8)
-    assert tslam.stats["kf_candidates"] == 0
+    assert tslam.stats["keyframes"] == 0
     assert tslam.stats["track_failures"] == 0
     assert tslam.stats["ransac_frames"] == 0
     assert len(tslam.trajectory) == len(jslam.trajectory) == 8
@@ -202,9 +202,15 @@ def test_scene_depth_is_consistent_with_poses():
 
 
 def test_monocular_init_is_not_ported():
+    """Frames without depth no longer raise: the first frame becomes the
+    init anchor (an identity entry), and a frame with no texture to match
+    initialises nothing. The name dates from when monocular input raised;
+    it is kept so that the test's record carries on."""
     slam = Slam(SlamConfig(use_depth=False))
-    with pytest.raises(NotImplementedError):
-        slam.process(0, np.zeros((64, 96), np.float32))
+    for i in range(2):
+        slam.process(i, np.zeros((64, 96), np.float32))
+    assert not slam.initialized and slam.stats["init_frame"] is None
+    assert [(f.frame_idx, f.is_keyframe) for f in slam.trajectory] == [(0, True)]
 
 
 def _run(args, cwd):

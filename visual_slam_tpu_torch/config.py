@@ -2,9 +2,10 @@
 
 The reference hard-codes every constant inline (SURVEY.md §5 "Config / flag
 system: none"); this module gathers them, with the reference values and
-their file:line provenance as defaults. Only the fields that the ported
-slice reads are here (RGB-D init, front-end, PnP tracking, the keyframe
-rule); the two-view, BA and loop-closure settings arrive with their modules.
+their file:line provenance as defaults (visual_slam_tpu/config.py:17-141).
+The loop-closure settings arrive with their module; homography-vs-essential
+init (`TwoViewConfig.use_model_selection`, off by default there) is not
+ported.
 """
 from __future__ import annotations
 
@@ -21,6 +22,25 @@ class FrontendConfig:
     match_ratio: float = 0.8  # Lowe ratio (frame.py:20)
     max_hamming: float = 96.0
     cross_check: bool = True
+
+
+@dataclass
+class TwoViewConfig:
+    ess_threshold_factor: float = 3.0  # essTh = 3.0/fx (main.py:103)
+    ransac_hypotheses: int = 512
+    min_matches: int = 100  # skip-frame gate (main.py:97-98)
+    min_valid_fraction: float = 0.9  # cheirality gate (main.py:113-114)
+    distance_thresh: float = 50.0  # recoverPose distanceThresh (helper_functions.py:176)
+    min_init_parallax_deg: float = 1.0  # median-parallax init gate (new; see pipeline.init_step)
+    # Below this median match flow the 0.9 validFraction gate cannot be met
+    # (lr traj3: validFraction 0.36 at ~87 px), so init_step skips the
+    # essential RANSAC and cheirality vote and returns frac = -1.
+    min_flow_px: float = 30.0
+    # Anchor re-seeding: once the current frame is this many frames past the
+    # init anchor, the anchor slides to the current frame. A pathological
+    # anchor (a monocular run starting at lr frame 200) otherwise starves
+    # init forever; 150 clears the healthy accept horizon (~63 frames).
+    reanchor_after: int = 150
 
 
 @dataclass
@@ -51,6 +71,40 @@ class KeyframeConfig:
     # cadence. 5 suppresses the chatter without ever being the binding
     # constraint on the healthy cadence (10-21 frames).
     min_gap: int = 5
+    cull_min_views: int = 3  # main.py:235
+    cull_every: int = 4  # main.py:234
+    cull_after: int = 6  # main.py:234
+    # New-point parallax gate (≙ helper_functions.py:211-267 min_parallax,
+    # which the reference's main loop never calls). Off: in the JAX package
+    # 0.5° helped a 200-frame run slightly (ATE 0.0086 vs 0.0125) but starved
+    # the map into tracking collapse on 600 frames (ATE 0.28 + 59 failures
+    # vs 0.037 + 0). min_mined_points protects runs that enable it.
+    min_parallax_deg: float = 0.0
+    # When the strict parallax gate would mine fewer landmarks than this, the
+    # ungated (reprojection + depth) mask is used instead: a starved snapshot
+    # cascades into keyframe-every-frame collapse on low-motion segments.
+    min_mined_points: int = 40
+    max_new_depth: float = 10.0  # cheirality/depth gate for mined points
+    triangulation_reproj_px: float = 4.0
+
+
+@dataclass
+class BAConfig:
+    iters: int = 10  # optimizer.optimize(10) (LocalBA.py:39)
+    cg_iters: int = 12  # truncated CG doubles as a trust region; 12 beats 24 on ATE
+    scale_gauge_on_init: bool = True  # median-depth normalize (LocalBA.py:179-190)
+    # "cg": implicit-Schur truncated PCG, whose truncation is a trust region
+    # that long runs need (JAX package, 1000-frame lr traj3: exact Cholesky
+    # steps warp to ATE 0.72, CG-12 holds 0.044). "chol": explicit reduced
+    # camera system + dense Cholesky, the exact LM step.
+    solver: str = "cg"
+    # RGB-D inverse-depth residual weight (models/ba._depth_terms); active in
+    # use_depth mode only, 0 disables. The reference never uses depth in BA.
+    depth_weight: float = 1.0
+    # Full-BA cadence in keyframes; 1 ≙ the reference (global BA on every
+    # keyframe, main.py:322-323). Values > 1 skip the BA on intermediate
+    # keyframes, whose observations join the next scheduled BA.
+    every_n_kf: int = 1
 
 
 @dataclass
@@ -71,8 +125,10 @@ class SlamConfig:
         default_factory=lambda: np.array([481.20, 480.0, 319.5, 239.5], np.float32)
     )
     frontend: FrontendConfig = field(default_factory=FrontendConfig)
+    twoview: TwoViewConfig = field(default_factory=TwoViewConfig)
     tracking: TrackingConfig = field(default_factory=TrackingConfig)
     keyframe: KeyframeConfig = field(default_factory=KeyframeConfig)
+    ba: BAConfig = field(default_factory=BAConfig)
     map: MapConfig = field(default_factory=MapConfig)
     seed: int = 0
-    use_depth: bool = False  # RGB-D mode: metric init from depth
+    use_depth: bool = False  # RGB-D mode: metric init and landmarks from depth

@@ -3,7 +3,7 @@
 SLAM has no learned weights. What both implementations must share is:
 the constant descriptor tables (PATTERN, _D, _WX, _WY), a map snapshot
 (xyz, desc, valid), a frame's features (uv, desc, score, valid), poses,
-and a bundle-adjustment problem (BAProblem).
+a bundle-adjustment problem (BAProblem) and a whole SLAM map (SlamMap).
 Each `from_jax_*` takes those as NumPy arrays — what `np.asarray` of the
 JAX values gives — and returns the port's tensors on `device`.
 
@@ -16,8 +16,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .config import MapConfig
 from .models.ba import BAProblem
 from .models.frontend import Features
+from .models.map_state import SlamMap
 
 
 def from_jax_desc(desc: np.ndarray, device) -> torch.Tensor:
@@ -89,3 +91,37 @@ def from_jax_ba_problem(fields, device) -> BAProblem:
 def to_numpy_ba_problem(p: BAProblem) -> dict[str, np.ndarray]:
     """The inverse of from_jax_ba_problem: field name -> NumPy array."""
     return {name: getattr(p, name).detach().cpu().numpy() for name in BAProblem._fields}
+
+
+_MAP_ARRAYS = (
+    "kf_R", "kf_t", "kf_valid", "kf_frame_idx", "kf_scale_meas", "pt_xyz", "pt_desc",
+    "pt_valid", "pt_views", "obs_cam", "obs_pt", "obs_uv", "obs_depth", "obs_valid",
+)
+_MAP_COUNTS = ("n_kf", "n_pt", "n_obs")
+
+
+def from_jax_map(jmap) -> SlamMap:
+    """A SlamMap of the JAX package (any object with its array attributes,
+    capacities in `config`) as the port's SlamMap: the same arrays, copied;
+    descriptors uint32 -> int32 by view."""
+    c = jmap.config
+    m = SlamMap(MapConfig(c.max_keyframes, c.max_points, c.max_observations, c.track_capacity))
+    for name in _MAP_ARRAYS:
+        a = np.array(getattr(jmap, name))
+        if name == "pt_desc":
+            if a.dtype != np.uint32:
+                raise TypeError(f"descriptors must be uint32, got {a.dtype}")
+            a = a.view(np.int32)
+        setattr(m, name, a)
+    for name in _MAP_COUNTS:
+        setattr(m, name, int(getattr(jmap, name)))
+    return m
+
+
+def to_jax_map_arrays(m: SlamMap) -> dict[str, np.ndarray]:
+    """The inverse of from_jax_map: array and count name -> NumPy value,
+    descriptors as uint32 with the same bits."""
+    out = {name: np.array(getattr(m, name)) for name in _MAP_ARRAYS}
+    out["pt_desc"] = out["pt_desc"].view(np.uint32)
+    out.update({name: getattr(m, name) for name in _MAP_COUNTS})
+    return out

@@ -503,7 +503,7 @@ def lm_loop(p: BAProblem, n_iters: int, init_lambda: float, solve, cost_fn):
     candidate is dropped with torch.where and the damping grows 4x; a better
     one is kept and the damping halves. Returns (problem, cost)."""
     cost = cost_fn(p)
-    lam = torch.tensor(init_lambda, dtype=p.R.dtype, device=p.R.device)
+    lam = torch.full((), init_lambda, dtype=p.R.dtype, device=p.R.device)  # no host copy
     for _ in range(n_iters):
         delta_c, delta_p = solve(p, lam)
         cand = _apply(p, delta_c, delta_p)
@@ -544,6 +544,6 @@ def median_depth_normalize(p: BAProblem, point_valid=None) -> BAProblem:
     norms = torch.linalg.norm(p.X, dim=-1)
     n_valid = torch.clamp(torch.sum(point_valid), min=1)
     sorted_norms = torch.sort(torch.where(point_valid, norms, torch.inf)).values
-    med = sorted_norms[(n_valid - 1) // 2]
+    med = sorted_norms.index_select(0, ((n_valid - 1) // 2).reshape(1))[0]  # no host read
     scale = torch.where((med > 1e-8) & torch.isfinite(med), med, 1.0)
     return p._replace(t=p.t / scale, X=p.X / scale)

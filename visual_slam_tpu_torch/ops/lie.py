@@ -1,5 +1,5 @@
 """SO(3) / SE(3) exponential maps (port of visual_slam_tpu/ops/lie.py:18-51,
-:86-102).
+:86-102, :126-134).
 
 The replacement for the reference's `cv2.Rodrigues` usage
 (src/v2/helper_functions.py:269-278). Functions take arbitrary leading
@@ -57,6 +57,15 @@ def se3_exp(xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     V = eye + b * W + c * W2
     t = (V @ v[..., None])[..., 0]
     return R, t
+
+
+def make_T(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """(R (...,3,3), t (...,3)) -> homogeneous transform (...,4,4)."""
+    T = torch.zeros(R.shape[:-2] + (4, 4), dtype=R.dtype, device=R.device)
+    T[..., :3, :3] = R
+    T[..., :3, 3] = t
+    T[..., 3, 3] = 1.0
+    return T
 
 
 def scale_edge_terms(R, t, i, j, meas):

@@ -50,7 +50,7 @@ def match_ratio_test(
     rows = torch.arange(D.shape[0], device=D.device)
     idx2 = torch.argmin(D, dim=1)
     d1 = D[rows, idx2]
-    d2 = D.index_put((rows, idx2), torch.tensor(float("inf"), device=D.device)).amin(dim=1)
+    d2 = D.scatter(1, idx2[:, None], float("inf")).amin(dim=1)
     good = (d1 < ratio * d2) & (d1 < max_distance) & valid1
     if cross_check:
         # Mutual NN: our best match's best match must be us.

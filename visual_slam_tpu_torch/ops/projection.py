@@ -1,5 +1,5 @@
 """Pinhole-camera projection primitives (port of
-visual_slam_tpu/ops/projection.py:37-74).
+visual_slam_tpu/ops/projection.py:17-29, :37-84).
 
 Intrinsics are a 4-vector (fx, fy, cx, cy), distortion-free, matching the
 reference (D = 0, src/v2/main.py:54).
@@ -7,6 +7,21 @@ reference (D = 0, src/v2/main.py:54).
 from __future__ import annotations
 
 import torch
+
+
+def intrinsics_matrix(intr: torch.Tensor) -> torch.Tensor:
+    """(fx, fy, cx, cy) -> 3x3 K matrix."""
+    fx, fy, cx, cy = intr[0], intr[1], intr[2], intr[3]
+    z = torch.zeros_like(fx)
+    o = torch.ones_like(fx)
+    return torch.stack([torch.stack([fx, z, cx]), torch.stack([z, fy, cy]),
+                        torch.stack([z, z, o])])
+
+
+def projection_matrix(T_cw: torch.Tensor, intr: torch.Tensor) -> torch.Tensor:
+    """K @ [R|t] (...,3,4) from a world->camera (...,4,4) transform
+    (≙ CameraProjectionMatrix2, src/v2/helper_functions.py:376-378)."""
+    return intrinsics_matrix(intr) @ T_cw[..., :3, :4]
 
 
 def normalize_pixels(uv: torch.Tensor, intr: torch.Tensor) -> torch.Tensor:

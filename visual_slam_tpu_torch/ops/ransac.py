@@ -54,6 +54,8 @@ def ransac(
     capped = torch.clamp_max(res, threshold_sq)
     msac = torch.sum(torch.where(mask[None, :], capped, 0.0), dim=-1)  # (B,)
     msac = torch.where(torch.isfinite(msac), msac, float("inf"))  # NaN models
-    best = torch.argmin(msac)
-    inliers = (res[best] < threshold_sq) & mask
-    return models[best], inliers, msac[best], inliers.sum()
+    # index_select with a 1-element index: indexing by a 0-d CUDA tensor
+    # would read it on the host.
+    best = torch.argmin(msac).reshape(1)
+    inliers = (res.index_select(0, best)[0] < threshold_sq) & mask
+    return models.index_select(0, best)[0], inliers, msac.index_select(0, best)[0], inliers.sum()

@@ -41,3 +41,8 @@ class StageTimers:
             }
             for name, v in sorted(self.ms.items())
         }
+
+    def rate(self, name: str, units: int) -> float:
+        """units per second spent in `name` (e.g. BA iterations/s)."""
+        total = float(np.sum(self.ms.get(name, []))) / 1e3
+        return units / total if total > 0 else 0.0
