@@ -15,21 +15,29 @@ Phases, each raising on failure:
                at 640x480, K=1024, M=2048: keyframes with depth mining and
                BA (use_depth, CG-12 x 10 LM) on B4/B5; ATE, failures,
                keyframes, applied BAs, every kernel's launch count, times;
-               B4/B5 vs their plain versions at that BA's shapes
+               B4/B5 vs their plain versions at that BA's shapes, B4 ten
+               times on normal rows (the same bits each call, no farther
+               from float64 sums than index_add_), B4's plan
   7. ransac    one frame tracked from a prior ~0.3 m / 10 deg off
-  8. timing    each kernel beside its plain version at the path's shapes
+  8. timing    each kernel beside its plain version at the path's shapes,
+               and its bound; B3 beside one PyTorch gather
   9. profile   device time per tracked frame, by kernel (torch.profiler)
  10. B4/B5     segment reduce/expand kernels vs their plain versions at
                BASELINE.json config-#5 shapes, at ragged shapes with
-               out-of-range camera ids, and with planted hot cameras
+               out-of-range camera ids, and with planted hot cameras; B4 ten
+               times at each, the same bits each call, within the float32
+               bound of float64 sums
  11. large map config #5 at full scale (5000 keyframes x 1,048,576
                landmarks x 4 observations) through large_map.run: cost drop,
-               pose recovery, B4/B5 launch counts, iterations/s, peak memory
+               pose recovery, first and warm run bit-equal, B4/B5 launch
+               counts, iterations/s, peak memory, B4's plan
  12. LM trace  device busy share and top kernels of one warm large-map
                optimize (torch.profiler)
  13. online BA ba.optimize, solver "chol" and "cg", on a 16-camera,
                2048-point arc built by make_problem
- 14. B4/B5 timing  each beside its plain version at config-#5 shapes
+ 14. B4/B5 timing  each beside its plain version, one PyTorch call for
+               the same function, and its bound at config-#5 shapes; B4
+               also with more cameras than slots
  15. monocular the SLAM loop on every 2nd frame, 90 frames at 640x480:
                two-view init (512 essential hypotheses), triangulated
                mining, BA; init frame, keyframes, applied BAs, failures,
@@ -70,8 +78,10 @@ BLUR_ATOL = 1e-6
 MIN_DESC_BIT_AGREEMENT = 0.995
 PRIOR_OFFSET_M = np.array([0.2, -0.15, 0.15])  # 0.29 m off the true centre
 PRIOR_OFFSET_DEG = 10.0
-# B4 adds with float atomics: the JAX package's bar between its reduce kernel
-# and its XLA version (tests/test_pallas_kernels.py:46-48). B5 copies: exact.
+# B4 against index_add_, which sums in another order: the JAX package's bar
+# between its reduce kernel and its XLA version (tests/test_pallas_kernels.py:
+# 46-48), where a camera has few slots; bit-equal on dyadic rows. B5 copies:
+# exact.
 REDUCE_RTOL, REDUCE_ATOL = 1e-5, 1e-4
 CONFIG5 = dict(K=5000, P=1 << 20, Q=4, n_iters=5, cg_iters=8, lm_lambda=1e-2)
 
@@ -297,7 +307,89 @@ def seg_inputs(C, N, K, rng, case="uniform"):
     return data, cam, rng.normal(size=(C, K)).astype(np.float32)
 
 
-def seg_phases(dev, smi) -> None:
+# The H100 SXM's published peaks (NVIDIA's datasheet): device memory
+# and float32 outside the tensor cores, in units per ms.
+HBM_BYTES_PER_MS, FP32_FLOPS_PER_MS = 3.35e9, 67e9
+
+
+def bound_ms(nbytes, flops):
+    """The least time the card could take for work that moves `nbytes`
+    (each input read once, each output written once) and does `flops`
+    float32 operations: (ms, "bytes" or "operations")."""
+    b, f = nbytes / HBM_BYTES_PER_MS, flops / FP32_FLOPS_PER_MS
+    return (b, "bytes") if b >= f else (f, "operations")
+
+
+def library_patch(img, uv):
+    """One PyTorch call that computes B3's function: an advanced-indexing
+    gather of the (K,32,32) patches, with its row and column indices built
+    once from the patch corners."""
+    from visual_slam_tpu_torch.ops.kernels import patch_kernel
+
+    H, W = img.shape
+    c = patch_kernel.patch_corners(uv, H, W).to(torch.int64)
+    ar = torch.arange(patch_kernel.PATCH, device=img.device)
+    rows, cols = (c[:, 1, None] + ar)[:, :, None], (c[:, 0, None] + ar)[:, None, :]
+    return lambda: img[rows, cols]
+
+
+def library_reduce(data, cam, K):
+    """One PyTorch call that computes B4's function: index_add_ into a
+    (C,K+1) buffer whose last column takes the out-of-range ids."""
+    from visual_slam_tpu_torch.ops.kernels import seg_kernel
+
+    idx = seg_kernel._slot_index(cam, K)
+    buf = torch.zeros((data.shape[0], K + 1), device=data.device)
+    return lambda: buf.index_add_(1, idx, data)
+
+
+def library_expand(x, cam):
+    """One PyTorch call that computes B5's function: index_select from the
+    table with a zero column for the out-of-range ids."""
+    from visual_slam_tpu_torch.ops.kernels import seg_kernel
+
+    idx = seg_kernel._slot_index(cam, x.shape[1])
+    padded = torch.cat([x, torch.zeros((x.shape[0], 1), device=x.device)], dim=1)
+    return lambda: padded.index_select(1, idx)
+
+
+def exact_reduce(data, cam, K):
+    """B4's function in float64 on float32 rows (C,N): ((C,K) sums, (C,K)
+    bound). The bound is the most that any order of float32 additions may
+    be off: gamma_(n-1) * sum |x| over a camera's n slots, with
+    gamma_m = m u / (1 - m u) and u = 2^-24 (Higham, Accuracy and Stability
+    of Numerical Algorithms, 2nd ed., eq. 4.6)."""
+    from visual_slam_tpu_torch.ops.kernels import seg_kernel
+
+    d = data.double()
+    exact = seg_kernel.cam_reduce_torch(d, cam, K)
+    abs_sum = seg_kernel.cam_reduce_torch(d.abs(), cam, K)
+    m = (seg_kernel.cam_reduce_torch(torch.ones_like(d[:1]), cam, K) - 1).clamp(min=0) * 2.0 ** -24
+    return exact, m / (1 - m) * abs_sum
+
+
+def check_reduce_repeats(name, data, cam, K, plan, hot=False) -> tuple[float, float]:
+    """B4 on `data` ten times: the same bits every call, within the bound of
+    any float32 order of the float64 sums and, where thousands of slots
+    share a camera (`hot`), no farther from them than index_add_. Returns
+    the largest distance of B4 and of index_add_ from the float64 sums."""
+    from visual_slam_tpu_torch.ops.kernels import seg_kernel
+
+    first = seg_kernel.cam_reduce(data, cam, K, plan)
+    if not all(torch.equal(seg_kernel.cam_reduce(data, cam, K, plan), first) for _ in range(9)):
+        raise AssertionError(f"{name}: B4 gave other bits on a repeated call")
+    exact, bound = exact_reduce(data, cam, K)
+    err = (first.double() - exact).abs()
+    kerr = err.max().item()
+    lerr = (seg_kernel.cam_reduce_torch(data, cam, K).double() - exact).abs().max().item()
+    if not (err <= bound).all():
+        raise AssertionError(f"{name}: B4 is {kerr} from the float64 sums, past the float32 bound")
+    if hot and kerr > lerr:
+        raise AssertionError(f"{name}: B4 is {kerr} from the float64 sums, index_add_ {lerr}")
+    return kerr, lerr
+
+
+def seg_phases(dev, smi) -> dict:
     """Phases 10-14: kernels B4/B5 and the bundle-adjustment back-end."""
     from visual_slam_tpu_torch import large_map
     from visual_slam_tpu_torch.models import ba, ba_large
@@ -321,10 +413,15 @@ def seg_phases(dev, smi) -> None:
         if not torch.equal(ek, ep):
             raise AssertionError(f"B5 ({C},{K})->({C},{N}) {case}: not bit-equal to the plain version")
         rerr = (rk - rp).abs().max().item()
+        # Ten calls on normal rows (the hot case's rows above are dyadic).
+        dn = d if case != "hot" else torch.from_numpy(rng.normal(size=(C, N)).astype(np.float32)).to(dev)
+        kerr, lerr = check_reduce_repeats(f"B4 ({C},{N})->({C},{K}) {case}", dn, c, K,
+                                          seg_kernel.reduce_plan(c, K), hot=case == "hot")
         log(f"[B4/B5] {case} C={C} N={N} K={K}: reduce max_abs_err {rerr:.3g} "
-            f"(max |sum| {rp.abs().max().item():.4g}, bit-equal {torch.equal(rk, rp)}); "
-            f"expand bit-equal")
-        del d, c, xt, rk, rp, ek, ep
+            f"(max |sum| {rp.abs().max().item():.4g}, bit-equal {torch.equal(rk, rp)}), the same bits "
+            f"on 10 calls on normal rows, there {kerr:.3g} from the float64 sums (index_add_ "
+            f"{lerr:.3g}); expand bit-equal")
+        del d, c, xt, rk, rp, ek, ep, dn
 
     # 11. config #5 at full scale through the large-map entry point
     t0 = time.perf_counter()
@@ -353,9 +450,14 @@ def seg_phases(dev, smi) -> None:
     log(f"[large map] {res['iters_per_s']:.3f} LM iters/s warm ({res['wall_s_warm']:.4f} s for "
         f"{n} iters x {g} CG), first run {res['wall_s_first']:.4f} s, peak memory {peak_gb:.3f} GB; "
         f"launches {launches} = 2 x {per_opt} + 1 expand (starting cost); {smi}")
-    log(f"[large map] first vs warm run of the same optimize: cost {res['cost_after_first']!r} vs "
-        f"{res['cost_after']!r}, difference {res['cost_after'] - res['cost_after_first']:.6g} "
-        f"(B4's float atomics add in a run-dependent order)")
+    # B4's reduce plan of config #5, built once per optimize call
+    plan5_ms = cuda_ms(lambda: seg_kernel.reduce_plan(prob.cam, CONFIG5["K"]), iters=10, warmup=2)
+    plan5 = seg_kernel.reduce_plan(prob.cam, CONFIG5["K"])
+    log(f"[large map] first and warm runs end on the same cost, {res['cost_after']!r}; B4's plan "
+        f"({plan5.tile}-slot tiles, {int(plan5.tile_ptr[-1])} of at most {plan5.max_runs} runs): "
+        f"built in {plan5_ms:.4f} ms, {plan5.nbytes() / 1e6:.3f} MB, plus "
+        f"{27 * plan5.max_runs * 4 / 1e6:.3f} MB of partials during the build's 27-row reduce")
+    del plan5
 
     # 12. where one warm LM solve's time goes
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -390,27 +492,42 @@ def seg_phases(dev, smi) -> None:
         if counts != (10, 1 + 2 * 10):
             raise AssertionError(f"online BA {solver}: launches {counts}, expected (10, 21)")
 
-    # 14. B4/B5 beside their plain versions at config-#5 shapes, in turns.
-    #     Queued CUDA events give the times: on an H100, a profiler window
-    #     was seen to keep ~1 of 20 B4 launches and read 0.0071 ms (14 TB/s).
-    #     The profiler's sum is printed beside them.
-    for name, C in [("B4", 27), ("B4", 6), ("B5", 12), ("B5", 6)]:
-        data, cam, x = seg_inputs(C, N5, K5, rng)
+    # 14. B4/B5 beside their plain versions at config-#5 shapes, and B4 at
+    #     the card test's K > N shape, in turns. Queued CUDA events give the
+    #     times: on an H100, a profiler window was seen to keep ~1 of 20 B4
+    #     launches and read 0.0071 ms (14 TB/s). The profiler's sum is
+    #     printed beside them. B4 runs over a plan built once, as in an
+    #     optimize call.
+    seg_times = {}
+    for name, C, N, K in [("B4", 27, N5, K5), ("B4", 6, N5, K5), ("B5", 12, N5, K5), ("B5", 6, N5, K5),
+                          ("B4", 3, 50000, 100000)]:
+        data, cam, x = seg_inputs(C, N, K, rng)
         d, c, xt = (torch.from_numpy(a).to(dev) for a in (data, cam, x))
         if name == "B4":
-            kernel_fn, plain_fn = (lambda: seg_kernel.cam_reduce(d, c, K5),
-                                   lambda: seg_kernel.cam_reduce_torch(d, c, K5))
+            plan = seg_kernel.reduce_plan(c, K)
+            kernel_fn, plain_fn, library_fn = (lambda: seg_kernel.cam_reduce(d, c, K, plan),
+                                               lambda: seg_kernel.cam_reduce_torch(d, c, K),
+                                               library_reduce(d, c, K))
+            bound = bound_ms(4 * (C * N + N + C * K), C * N)
         else:
-            kernel_fn, plain_fn = (lambda: seg_kernel.cam_expand(xt, c),
-                                   lambda: seg_kernel.cam_expand_torch(xt, c))
+            kernel_fn, plain_fn, library_fn = (lambda: seg_kernel.cam_expand(xt, c),
+                                               lambda: seg_kernel.cam_expand_torch(xt, c),
+                                               library_expand(xt, c))
+            bound = bound_ms(4 * (C * K + N + C * N), 0)
         p1, k1, k2, p2 = (queued_ms(f, iters=20) for f in (plain_fn, kernel_fn, kernel_fn, plain_fn))
         kms, pms = min(k1, k2), min(p1, p2)
+        lms = queued_ms(library_fn, iters=20)
         kprof, pprof = device_ms(kernel_fn, iters=20)[0], device_ms(plain_fn, iters=20)[0]
-        mb = 4 * C * N5 / 1e6
-        log(f"[timing] {name} C={C} N={N5} K={K5}: kernel {kms:.4f} ms, plain {pms:.4f} ms device "
-            f"(queued events; profiler sums {kprof:.4f} / {pprof:.4f} ms); {mb:.0f} MB of rows: "
-            f"kernel at {mb / kms / 1e3:.3f} TB/s; {smi}")
+        mb = 4 * C * N / 1e6
+        seg_times[(name, C, N, K)] = (kms, pms, lms, bound)
+        log(f"[timing] {name} C={C} N={N} K={K}: kernel {kms:.4f} ms, plain {pms:.4f} ms, "
+            f"library {lms:.4f} ms device (queued events; profiler sums {kprof:.4f} / {pprof:.4f} ms); "
+            f"{mb:.0f} MB of rows: kernel at {mb / kms / 1e3:.3f} TB/s; bound {bound[0]:.4f} ms "
+            f"({bound[1]}): kernel at {bound[0] / kms:.3f} of its bound"
+            + (f"; {plan.tile}-slot tiles, {int(plan.tile_ptr[-1])} runs" if name == "B4" else "")
+            + f"; {smi}")
         del d, c, xt
+    return seg_times
 
 
 def reproj_px(Xa, Xb, poses, intr, mask) -> float:
@@ -624,22 +741,31 @@ def main() -> int:
     # B4/B5 against their plain versions at the shapes that BA step gives
     # them: the (42,N) U/g_c reduce over the final map's camera index and
     # the (12,K) camera-table expand; timed in turns. That index puts
-    # thousands of slots on a few cameras (padding slots on camera 0), so
-    # the rows are dyadic (multiples of 1/256, as phase 10's hot cameras):
-    # their sums are exact in float32, and B4 must be bit-equal.
+    # thousands of slots on a few cameras (padding slots on camera 0), where
+    # index_add_'s own float32 sums drift past the bar, so B4 is held to
+    # index_add_ on dyadic rows (multiples of 1/256, as phase 10's hot
+    # cameras), whose sums are exact: bit-equal. On normal rows it must give
+    # the same bits on ten calls and come no farther from the float64 sums
+    # than index_add_.
     K6, N6 = prob.R.shape[0], prob.cam.shape[0]
-    rows = np.random.default_rng(6).integers(-1024, 1024, (42, N6)) / 256
-    rows = torch.from_numpy(rows.astype(np.float32)).to(dev)
+    rng6 = np.random.default_rng(6)
+    rows = torch.from_numpy((rng6.integers(-1024, 1024, (42, N6)) / 256).astype(np.float32)).to(dev)
+    normal = torch.from_numpy(rng6.normal(size=(42, N6)).astype(np.float32)).to(dev)
     hot = int(torch.bincount(prob.cam.long().clamp(0, K6)).max())
     table = ba.cam_rows(prob)
+    plan6 = seg_kernel.reduce_plan(prob.cam, K6)
+    kerr6, lerr6 = check_reduce_repeats(f"B4 (42,{N6})->(42,{K6}) on the BA path", normal, prob.cam,
+                                        K6, plan6, hot=hot >= 1000)
     path_fns = {
-        "B4": (lambda: seg_kernel.cam_reduce(rows, prob.cam, K6),
-               lambda: seg_kernel.cam_reduce_torch(rows, prob.cam, K6)),
+        "B4": (lambda: seg_kernel.cam_reduce(rows, prob.cam, K6, plan6),
+               lambda: seg_kernel.cam_reduce_torch(rows, prob.cam, K6),
+               library_reduce(rows, prob.cam, K6)),
         "B5": (lambda: seg_kernel.cam_expand(table, prob.cam),
-               lambda: seg_kernel.cam_expand_torch(table, prob.cam)),
+               lambda: seg_kernel.cam_expand_torch(table, prob.cam),
+               library_expand(table, prob.cam)),
     }
-    rk, rp = (f() for f in path_fns["B4"])
-    ek, ep = (f() for f in path_fns["B5"])
+    rk, rp = (f() for f in path_fns["B4"][:2])
+    ek, ep = (f() for f in path_fns["B5"][:2])
     torch.cuda.synchronize()
     if not torch.equal(rk, rp):
         raise AssertionError(f"B4 (42,{N6})->(42,{K6}) on the BA path: exact (dyadic) sums differ "
@@ -648,14 +774,23 @@ def main() -> int:
         raise AssertionError(f"B5 (12,{K6})->(12,{N6}) on the BA path: not bit-equal to the plain version")
     path_err = {"cam_reduce": (rk - rp).abs().max().item(), "cam_expand": (ek - ep).abs().max().item()}
     path_times = {}
-    for name, (kernel_fn, plain_fn) in path_fns.items():
+    for name, (kernel_fn, plain_fn, library_fn) in path_fns.items():
         p1, k1, k2, p2 = (queued_ms(f) for f in (plain_fn, kernel_fn, kernel_fn, plain_fn))
-        path_times[name] = (min(k1, k2), min(p1, p2))
-    log(f"[RGB-D BA] B4 (42,{N6})->(42,{K6}), up to {hot} slots on one camera: bit-equal on "
-        f"dyadic rows, kernel {path_times['B4'][0]:.4f} ms vs plain "
-        f"{path_times['B4'][1]:.4f} ms; B5 (12,{K6})->(12,{N6}): bit-equal, kernel "
-        f"{path_times['B5'][0]:.4f} ms vs plain {path_times['B5'][1]:.4f} ms (queued events); {smi}")
-    del rows, table, rk, rp, ek, ep
+        path_times[name] = (min(k1, k2), min(p1, p2), queued_ms(library_fn))
+    plan6_ms = cuda_ms(lambda: seg_kernel.reduce_plan(prob.cam, K6), iters=20, warmup=3)
+    path_bounds = {"B4": bound_ms(4 * (42 * N6 + N6 + 42 * K6), 42 * N6),
+                   "B5": bound_ms(4 * (12 * K6 + N6 + 12 * N6), 0)}
+    log(f"[RGB-D BA] B4 (42,{N6})->(42,{K6}), up to {hot} slots on one camera: bit-equal to plain "
+        f"on dyadic rows; on normal rows the same bits on 10 calls, {kerr6:.3g} from the float64 "
+        f"sums (index_add_ {lerr6:.3g}); kernel {path_times['B4'][0]:.4f} ms vs plain "
+        f"{path_times['B4'][1]:.4f} ms vs index_add_ {path_times['B4'][2]:.4f} ms, bound {path_bounds['B4'][0]:.5f} ms "
+        f"({path_bounds['B4'][1]}); plan ({plan6.tile}-slot tiles, {int(plan6.tile_ptr[-1])} of at "
+        f"most {plan6.max_runs} runs): built in {plan6_ms:.4f} ms, {plan6.nbytes() / 1e6:.4f} MB, "
+        f"+ {42 * plan6.max_runs * 4 / 1e6:.4f} MB of partials per call; {smi}")
+    log(f"[RGB-D BA] B5 (12,{K6})->(12,{N6}): bit-equal, kernel {path_times['B5'][0]:.4f} ms vs "
+        f"plain {path_times['B5'][1]:.4f} ms vs index_select {path_times['B5'][2]:.4f} ms, bound "
+        f"{path_bounds['B5'][0]:.5f} ms (queued events); {smi}")
+    del rows, normal, table, rk, rp, ek, ep
 
     # 7. the RANSAC branch: a prior ~0.3 m and 10 deg off the truth
     i = FRAMES // 2
@@ -702,6 +837,24 @@ def main() -> int:
         log(f"[timing] {name}: kernel {times[name][0]:.4f} ms device / {kc:.4f} ms per call; "
             f"plain {times[name][1]:.4f} ms device / {pc:.4f} ms per call "
             f"(device time by {'+'.join(methods)}; {smi})")
+    # B3's library call: one advanced-indexing gather (B1 and B2 have none).
+    library_fn = library_patch(blurred, uv_path)
+    if not torch.equal(library_fn(), patch_kernel.extract_patches(blurred, uv_path)):
+        raise AssertionError("B3: the library gather differs from the kernel")
+    b3_library_ms, how = device_ms(library_fn)
+    log(f"[timing] B3: library (img[rows, cols]) {b3_library_ms:.4f} ms device ({how}); {smi}")
+    # Bounds: B1 reads the frame and writes peaks and blur, about 100 float
+    # operations a pixel (Sobel 22, products and 3x3 box 18, eigenvalue 8,
+    # 7x7 max 13, blur 36); B2 the same without the blur (64 a pixel, one
+    # output); B3 reads the frame and uv and writes K 32x32 patches, copies
+    # only.
+    H, W = gray.shape
+    K3 = uv_path.shape[0]
+    bounds = {"B1": bound_ms(4 * 3 * H * W, 100 * H * W),
+              "B2": bound_ms(4 * 2 * H * W, 64 * H * W),
+              "B3": bound_ms(4 * (H * W + 2 * K3 + 32 * 32 * K3), 0)}
+    for name, (b, by) in bounds.items():
+        log(f"[timing] {name}: bound {b:.5f} ms ({by}); kernel at {b / times[name][0]:.3f} of it")
 
     # 9. where a tracked frame's time goes: device kernels by name
     pslam = Slam(cfg, device=dev)
@@ -722,27 +875,36 @@ def main() -> int:
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:8]:
         log(f"[profile]   {us / 1e3 / n_prof:8.4f} ms/frame {count / n_prof:6.1f}/frame  {key[:90]}")
 
-    seg_phases(dev, smi)
+    seg_times = seg_phases(dev, smi)
     mono_phases(dev, smi)
 
     kernels = [
         dict(name="detect_blur", route="cuda", source="visual_slam_tpu_torch/csrc/detect_blur.cu",
              replaces="visual_slam_tpu/ops/pallas/detect_kernel.py:123",
              launches=launches["detect_blur"], max_abs_err=b1_err,
-             ms=times["B1"][0], plain_ms=times["B1"][1]),
+             ms=times["B1"][0], plain_ms=times["B1"][1], bound_ms=bounds["B1"][0],
+             bound_by=bounds["B1"][1], library_ms=None),
         dict(name="patch", route="cuda", source="visual_slam_tpu_torch/csrc/patch.cu",
              replaces="visual_slam_tpu/ops/pallas/patch_kernel.py:32",
              launches=launches["patch"], max_abs_err=b3_err,
-             ms=times["B3"][0], plain_ms=times["B3"][1]),
+             ms=times["B3"][0], plain_ms=times["B3"][1], bound_ms=bounds["B3"][0],
+             bound_by=bounds["B3"][1], library_ms=b3_library_ms),
         dict(name="cam_reduce", route="cuda", source="visual_slam_tpu_torch/csrc/seg.cu",
              replaces="visual_slam_tpu/ops/pallas/seg_kernel.py:55",
              launches=launches["cam_reduce"], max_abs_err=path_err["cam_reduce"],
-             ms=path_times["B4"][0], plain_ms=path_times["B4"][1]),
+             ms=path_times["B4"][0], plain_ms=path_times["B4"][1],
+             bound_ms=path_bounds["B4"][0], bound_by=path_bounds["B4"][1],
+             library_ms=path_times["B4"][2]),
         dict(name="cam_expand", route="cuda", source="visual_slam_tpu_torch/csrc/seg.cu",
              replaces="visual_slam_tpu/ops/pallas/seg_kernel.py:83",
              launches=launches["cam_expand"], max_abs_err=path_err["cam_expand"],
-             ms=path_times["B5"][0], plain_ms=path_times["B5"][1]),
+             ms=path_times["B5"][0], plain_ms=path_times["B5"][1],
+             bound_ms=path_bounds["B5"][0], bound_by=path_bounds["B5"][1],
+             library_ms=path_times["B5"][2]),
     ]
+    for (name, C, N, K), (kms, pms, lms, (b, by)) in seg_times.items():
+        log(f"[kernels] {name} at C={C}, N={N}, K={K}: {kms:.4f} ms, plain {pms:.4f} ms, library "
+            f"{lms:.4f} ms, bound {b:.4f} ms ({by}): {b / kms:.3f} of the bound")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

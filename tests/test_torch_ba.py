@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from test_ba import _synth_with_depth, synth_problem
-from torch_parity import ICL_INTR, n, t
+from torch_parity import ICL_INTR, cam_reduce_walk, n, t
 
 from visual_slam_tpu.models import ba as jba
 from visual_slam_tpu.models import ba_large as jbl
@@ -85,7 +85,7 @@ def test_ba_large_pieces_match_jax(edged, piece):
         for g, w in zip(got, jbl._jacobians(Xc, Rn, iz, jp.intr)):
             _close(g, w)
     elif piece == "build":
-        got = ba_large._build(tp, torch.tensor(LAMBDA))
+        got = ba_large._build(tp, torch.tensor(LAMBDA), None)
         want = jbl._build(jp, LAMBDA)
         assert float(np.abs(np.asarray(want[5])).max()) > 1.0  # H_ij is live
         for g, w in zip(got, want):
@@ -94,10 +94,10 @@ def test_ba_large_pieces_match_jax(edged, piece):
         U, V_inv, _, _, WO, H = jbl._build(jp, LAMBDA)
         x = np.random.default_rng(5).normal(size=(6, 6)).astype(np.float32)
         want = jbl._schur_matvec(jnp.asarray(x), jp, U, V_inv, WO, H, None, False)
-        got = ba_large._schur_matvec(t(x), tp, t(U), t(V_inv), t(WO), t(H))
+        got = ba_large._schur_matvec(t(x), tp, t(U), t(V_inv), t(WO), t(H), None)
         _close(got, want)
     elif piece == "solve_delta":
-        got = ba_large._solve_delta(tp, torch.tensor(LAMBDA), 10, False)
+        got = ba_large._solve_delta(tp, torch.tensor(LAMBDA), 10, False, None)
         for g, w in zip(got, jbl._solve_delta(jp, LAMBDA, 10, False)):
             _close(g, w, atol=DELTA_ATOL)
     else:
@@ -128,7 +128,7 @@ def test_ba_large_matches_port_online_cg():
 def test_ba_large_converges_medium_scale():
     """256 keyframes x 16k landmarks (64k observations), port only: the cost
     falls to the noise floor and the poses tighten (tests/test_ba_large.py:49-63)."""
-    prob, gt = synthetic.build_loop_map(256, 16384, 4)
+    prob, gt = synthetic.build_loop_map(256, 16384, 4, device="cpu")
     res, out = large_map.run(prob, gt, n_iters=6, cg_iters=8, lm_lambda=1e-2)
     large_map.check(res)
     assert res["cost_after"] == res["cost_after_first"]  # CPU sums repeat
@@ -138,7 +138,7 @@ def test_ba_large_converges_medium_scale():
 
 def test_build_loop_map_matches_jax():
     jp, jgt = jsynthetic.build_loop_map(64, 2048, 4, seed=3)
-    tp, tgt = synthetic.build_loop_map(64, 2048, 4, seed=3)
+    tp, tgt = synthetic.build_loop_map(64, 2048, 4, seed=3, device="cpu")
     for name in ("cam", "uv", "w", "X", "cam_fixed", "pt_valid", "dinv", "dw"):
         np.testing.assert_array_equal(n(getattr(tp, name)), np.asarray(getattr(jp, name)), err_msg=name)
     np.testing.assert_allclose(n(tp.R), np.asarray(jp.R), rtol=0, atol=1e-6)
@@ -165,7 +165,7 @@ def test_make_problem_matches_jax():
     args = dict(R=R, t=tr, X=X, cam=cam, pnt=pnt, uv=uv, w=w, intr=ICL_INTR,
                 cam_fixed=fixed, depth=depth, depth_weight=0.7)
     jp, jmeta = jba.make_problem(**args)
-    tp, tmeta = ba.make_problem(**args)
+    tp, tmeta = ba.make_problem(**args, device="cpu")
     for name in jba.BAProblem._fields:
         np.testing.assert_array_equal(n(getattr(tp, name)), np.asarray(getattr(jp, name)), err_msg=name)
     np.testing.assert_array_equal(tmeta.slot_obs, jmeta.slot_obs)
@@ -199,7 +199,7 @@ def test_online_pieces_match_jax(edged):
     jp, tp = edged
     C_T = jba._onehot(jp)
     want = jba._build_planar(jp, LAMBDA, C_T)
-    got = ba._build_planar(tp, torch.tensor(LAMBDA))
+    got = ba._build_planar(tp, torch.tensor(LAMBDA), None)
     for g, w in zip(got[:6], want[:6]):
         _close(g, w)
     for g, w in zip(ba.reproj_errors(tp), jba.reproj_errors(jp)):
@@ -235,7 +235,7 @@ def test_arc_problem_matches_test_helper():
     projected pixels agree to 1e-3 px."""
     jp, jgt = synth_problem(np.random.default_rng(7), K=5, P=120, noise_px=0.3,
                             pose_noise=0.02, point_noise=0.03)
-    tp, tgt = synthetic.arc_problem(5, 120, 0.3, 0.02, 0.03, seed=7)
+    tp, tgt = synthetic.arc_problem(5, 120, 0.3, 0.02, 0.03, seed=7, device="cpu")
     for name in ("cam", "w", "X", "cam_fixed", "pt_valid", "se_w"):
         np.testing.assert_array_equal(n(getattr(tp, name)), np.asarray(getattr(jp, name)), err_msg=name)
     np.testing.assert_allclose(n(tp.R), np.asarray(jp.R), rtol=0, atol=1e-6)
@@ -243,3 +243,49 @@ def test_arc_problem_matches_test_helper():
     np.testing.assert_allclose(n(tp.uv), np.asarray(jp.uv), rtol=0, atol=1e-3)
     for g, w in zip(tgt, jgt):
         np.testing.assert_allclose(g, w, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("solver", ["ba", "ba_large"])
+def test_optimize_passes_one_reduce_plan(monkeypatch, solver):
+    """`optimize` builds one reduce plan of p.cam and hands it to every B4
+    call; on the CPU the plan is not read, so the result is the plan-free
+    loop's, bit for bit. With B4's own order of additions (the walk) in
+    place of index_add_ the solve lands within the cross-solver bars."""
+    from visual_slam_tpu_torch.ops.kernels import seg_kernel
+
+    if solver == "ba":
+        prob, _ = synthetic.arc_problem(6, 300, 0.3, 0.02, 0.03, seed=2, device="cpu")
+        n_it, cg, calls = 4, 8, 4
+        run = lambda: ba.optimize(prob, n_iters=n_it, cg_iters=cg, solver="cg")  # noqa: E731
+        plain = lambda: ba.lm_loop(  # noqa: E731
+            prob, n_it, 1e-4, lambda q, lam: ba._solve_delta(q, lam, cg, False, None, "cg", False),
+            lambda q: ba._cost(q, False))
+    else:
+        prob, _ = synthetic.build_loop_map(64, 2048, 4, device="cpu")
+        n_it, cg, calls = 3, 6, 3 * (6 + 2)
+        run = lambda: ba_large.optimize(prob, n_iters=n_it, cg_iters=cg, init_lambda=1e-2)  # noqa: E731
+        plain = lambda: ba.lm_loop(  # noqa: E731
+            prob, n_it, 1e-2, lambda q, lam: ba_large._solve_delta(q, lam, cg, False, None),
+            ba_large._cost)
+    want_p, want_cost = plain()
+    got_p, got_cost = run()
+    assert torch.equal(got_cost, want_cost) and torch.equal(got_p.t, want_p.t)
+    assert torch.equal(got_p.X, want_p.X)
+
+    K = prob.R.shape[0]
+    seen = []
+    orig = seg_kernel.cam_reduce
+
+    def walk(data, cam, K_, plan=None):
+        seen.append(plan)
+        assert orig(data, cam, K_, plan).shape == (data.shape[0], K_)
+        return cam_reduce_walk(data, plan)
+
+    monkeypatch.setattr(seg_kernel, "cam_reduce", walk)
+    walk_p, walk_cost = run()
+    assert len(seen) == calls and all(p is seen[0] for p in seen)
+    ref = seg_kernel.reduce_plan(prob.cam, K)
+    for a, b in zip(seen[0][3:], ref[3:]):
+        assert torch.equal(a, b)
+    assert abs(float(walk_cost) - float(want_cost)) <= COST_RTOL * float(want_cost)
+    np.testing.assert_allclose(n(walk_p.X), n(want_p.X), atol=X_ATOL)

@@ -8,7 +8,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import checkerboard, desc_bits, edge_keypoints, smooth_noise
+from torch_parity import (cam_reduce_walk, checkerboard, desc_bits, edge_keypoints, exact_reduce,
+                          smooth_noise)
 
 from visual_slam_tpu_torch import convert
 from visual_slam_tpu_torch.config import SlamConfig
@@ -26,8 +27,10 @@ PEAK_RTOL = 1e-5  # kernel and plain run the same float ops: expect bit-equality
 BLUR_ATOL = 1e-6
 MIN_DESC_BIT_AGREEMENT = 0.995  # card vs CPU: matmul sums in another order
 POSE_ATOL = 1e-4
-# B4 adds with float atomics: the JAX package's bar between its reduce
-# kernel and its XLA version (tests/test_pallas_kernels.py:46-48).
+# B4 against index_add_, which adds in another order: the JAX package's bar
+# between its reduce kernel and its XLA version
+# (tests/test_pallas_kernels.py:46-48). Against its own order of additions
+# (torch_parity.cam_reduce_walk) B4 is bit-equal.
 REDUCE_RTOL, REDUCE_ATOL = 1e-5, 1e-4
 # BA on the card vs on the CPU: f32 camera sums associate differently and LM
 # accept/reject rounds amplify it (the JAX package's sharded-identity bars,
@@ -121,11 +124,10 @@ def test_slam_card_matches_cpu(cuda, mode):
     RGB-D: init, keyframe and BA-apply frames agree, camera centres to
     BA_T_ATOL. Monocular: the same holds, centres to POSE_ATOL, up to the
     frame where the second BA applies. That BA (three keyframes, two free)
-    is chaotic in float32: B4's float atomics alone make two card runs
-    differ by up to 1.2e-2 m after it and move the fifth keyframe between
-    frames 150 and 156 (PERF.md), so from there on each run is held to the
-    same bars: keyframe count, BA count within one, no track failure, Sim3
-    ATE under MONO_ATE_LIMIT_M."""
+    is chaotic in float32: the card's and the CPU's camera sums, added in
+    different orders, part the runs after it (PERF.md), so from there on
+    each run is held to the same bars: keyframe count, BA count within one,
+    no track failure, Sim3 ATE under MONO_ATE_LIMIT_M."""
     intr = np.array([240.6, 240.0, 159.75, 119.75], np.float32)
     n_frames, stride = (60, 1) if mode == "rgbd" else (178, 3)
     scene = SyntheticRGBDScene(n_frames, 240, 320, intrinsics=intr)
@@ -166,14 +168,52 @@ def test_slam_card_matches_cpu(cuda, mode):
             assert s.stats["track_failures"] == 0 and ate < MONO_ATE_LIMIT_M
 
 
+def test_slam_card_runs_repeat(cuda):
+    """The monocular loop of test_slam_card_matches_cpu[mono] twice on the
+    card: the same trajectory, bit for bit, and the same BA history. B4
+    adds in an order fixed by its plan, so nothing in the loop depends on
+    the run."""
+    intr = np.array([240.6, 240.0, 159.75, 119.75], np.float32)
+    scene = SyntheticRGBDScene(178, 240, 320, intrinsics=intr)
+    frames = [(i, scene.render(i)[0]) for i in range(0, 178, 3)]
+    runs = []
+    for _ in range(2):
+        cfg = SlamConfig(intrinsics=intr)
+        cfg.frontend.max_features = 256
+        cfg.map.track_capacity = 512
+        slam = Slam(cfg, device=cuda)
+        history = []
+        for i, gray in frames:
+            slam.process(i, gray)
+            history.append((slam.stats["ba_runs"], slam.stats["ba_rejected"],
+                            slam.stats["ba_dropped_stale"], slam.stats["keyframes"]))
+        runs.append((slam, history))
+    (sa, ha), (sb, hb) = runs
+    assert ha == hb and sa.stats == sb.stats and sa.stats["ba_runs"] >= 2
+    assert len(sa.trajectory) == len(sb.trajectory)
+    for fa, fb in zip(sa.trajectory, sb.trajectory):
+        assert (fa.frame_idx, fa.is_keyframe) == (fb.frame_idx, fb.is_keyframe)
+        assert np.array_equal(fa.R_cw, fb.R_cw) and np.array_equal(fa.t_cw, fb.t_cw)
+    assert np.array_equal(sa.map.pt_xyz, sb.map.pt_xyz)
+
+
 @pytest.mark.parametrize("C,N,K,case", [
     (27, 1 << 22, 5000, "config5"),  # the build's reduce at BASELINE.json config #5
     (12, 1 << 22, 5000, "config5"),  # the projection's expand there
     (5, 100003, 257, "ragged"),  # N a multiple of no block; ids >= K and < 0
     (27, 1 << 20, 5000, "hot"),  # 90% of the slots on 3 cameras
-    (3, 50000, 100000, "wide"),  # K too wide for shared memory
+    (42, 16384, 64, "kfba"),  # the keyframe BA's U/g_c reduce: padding on camera 0
+    (3, 50000, 100000, "wide"),  # K larger than N
 ])
 def test_seg_kernels_match_plain(cuda, C, N, K, case):
+    """B4 and B5 against their plain versions; B4 bit-equal to its own
+    order of additions and, on dyadic rows (exact sums), to index_add_, and
+    the same bits on ten calls. Against float64 sums B4 stays within the
+    bound of any float32 order; where thousands of slots share a camera
+    (hot, kfba), index_add_'s own float32 sums drift past rtol 1e-5 / atol
+    1e-4 of the float64 ones, so there B4 is held no farther off than a
+    sum in slot order (index_add_ on the CPU), elsewhere within rtol / atol
+    of index_add_."""
     rng = np.random.default_rng(C + K)
     cam = rng.integers(0, K, N).astype(np.int32)
     data = rng.normal(size=(C, N)).astype(np.float32)
@@ -182,17 +222,30 @@ def test_seg_kernels_match_plain(cuda, C, N, K, case):
     if case == "hot":
         hot = rng.uniform(size=N) < 0.9
         cam[hot] = np.array([7, 1234, K - 1], np.int32)[rng.integers(0, 3, int(hot.sum()))]
-        data = (rng.integers(-1024, 1024, (C, N)) / 256).astype(np.float32)  # exact sums
-    d, c = torch.from_numpy(data).to(cuda), torch.from_numpy(cam).to(cuda)
+    if case == "kfba":  # make_problem's layout: Q=8 slots a landmark, 7 of them padding
+        cam = cam.reshape(-1, 8)
+        cam[:, 1:] = 0
+        cam = np.ascontiguousarray(cam.reshape(-1))
+    dyadic = (rng.integers(-1024, 1024, (C, N)) / 256).astype(np.float32)  # exact sums
+    d, c, dd = (torch.from_numpy(a).to(cuda) for a in (data, cam, dyadic))
     x = torch.from_numpy(rng.normal(size=(C, K)).astype(np.float32)).to(cuda)
     n_red, n_exp = seg_kernel.reduce_launches, seg_kernel.expand_launches
     red = seg_kernel.cam_reduce(d, c, K)
     exp = seg_kernel.cam_expand(x, c)
     assert (seg_kernel.reduce_launches, seg_kernel.expand_launches) == (n_red + 1, n_exp + 1)
-    torch.testing.assert_close(red, seg_kernel.cam_reduce_torch(d, c, K),
-                               rtol=REDUCE_RTOL, atol=REDUCE_ATOL)
-    if case == "hot":
-        assert torch.equal(red, seg_kernel.cam_reduce_torch(d, c, K))
+    exact, bound = exact_reduce(d, c, K)
+    err = (red.double() - exact).abs()
+    assert (err <= bound).all()
+    if case in ("hot", "kfba"):  # 1e4-1e5 normal terms a camera
+        seq = seg_kernel.cam_reduce_torch(torch.from_numpy(data), torch.from_numpy(cam), K)
+        assert err.max().item() <= (seq.double() - exact.cpu()).abs().max().item()
+    else:
+        torch.testing.assert_close(red, seg_kernel.cam_reduce_torch(d, c, K),
+                                   rtol=REDUCE_RTOL, atol=REDUCE_ATOL)
+    plan = seg_kernel.reduce_plan(c, K)
+    assert torch.equal(red, cam_reduce_walk(d, plan))
+    assert all(torch.equal(seg_kernel.cam_reduce(d, c, K, plan), red) for _ in range(10))
+    assert torch.equal(seg_kernel.cam_reduce(dd, c, K, plan), seg_kernel.cam_reduce_torch(dd, c, K))
     assert torch.equal(exp, seg_kernel.cam_expand_torch(x, c))
 
 
@@ -206,10 +259,13 @@ def test_seg_wrappers_raise_instead_of_falling_back(cuda):
         seg_kernel.cam_reduce(torch.zeros((10, 3), device=cuda).T, cam, 4)
     with pytest.raises(ValueError):
         seg_kernel.cam_expand(torch.zeros((3, 4), device=cuda), cam.cpu())
+    with pytest.raises(ValueError):  # a plan made for other ids
+        seg_kernel.cam_reduce(torch.zeros((3, 10), device=cuda), cam, 4,
+                              seg_kernel.reduce_plan(cam[:9], 4))
 
 
 def test_ba_large_card_matches_cpu(cuda):
-    prob, gt = synthetic.build_loop_map(64, 2048, 4)
+    prob, gt = synthetic.build_loop_map(64, 2048, 4, device="cpu")
     n_red, n_exp = seg_kernel.reduce_launches, seg_kernel.expand_launches
     og, cg = ba_large.optimize(ba.BAProblem(*(f.to(cuda) for f in prob)), n_iters=5, cg_iters=8,
                                init_lambda=1e-2)

@@ -124,7 +124,7 @@ def test_global_snapshot_matches_jax(maps):
 def test_to_ba_problem_matches_jax(maps, depth_weight):
     tm, jm, _ = maps
     jp = jm.to_ba_problem(ICL_INTR, depth_weight=depth_weight)
-    tp, meta = tm.to_ba_problem(ICL_INTR, depth_weight=depth_weight)
+    tp, meta = tm.to_ba_problem(ICL_INTR, depth_weight=depth_weight, device="cpu")
     for name in ba.BAProblem._fields:
         np.testing.assert_array_equal(n(getattr(tp, name)), np.asarray(getattr(jp, name)),
                                       err_msg=name)
@@ -141,7 +141,7 @@ def ba_results(maps):
     for mode, dw in (("mono", 0.0), ("rgbd", 1.0)):
         jp = jm.to_ba_problem(ICL_INTR, depth_weight=dw)
         j_out, j_diag, j_bad = j_ba_step(jp, n_iters=10, cg_iters=12, solver="cg", use_depth=dw > 0)
-        tp, meta = tm.to_ba_problem(ICL_INTR, depth_weight=dw)
+        tp, meta = tm.to_ba_problem(ICL_INTR, depth_weight=dw, device="cpu")
         res = ba_step(tp, n_iters=10, cg_iters=12, solver="cg", use_depth=dw > 0)
         j_bad = np.unpackbits(np.asarray(j_bad))[: len(meta.slot_obs)].astype(bool)
         out[mode] = (res, meta, j_out, np.asarray(j_diag), j_bad, jm.ba_meta)
@@ -176,7 +176,7 @@ def test_mirrored_ba_is_rejected(maps, ba_results, mirrored):
     step = ba_step(prob, n_iters=0, cg_iters=12, solver="cg")
     assert float(step.blown) == float(res.blown) > 0
     assert float(step.behind) == (1.0 if mirrored else 0.0)
-    slam = Slam(SlamConfig())
+    slam = Slam(SlamConfig(), device="cpu")
     slam.map = copy.deepcopy(maps[0])
     kf_t = slam.map.kf_t.copy()
     slam._pending_ba = dict(res=step, meta=meta, kf_id=slam.map.n_kf - 1, scale_gauge=False, age=3)
@@ -236,7 +236,7 @@ def test_from_jax_map_round_trips(maps):
         np.testing.assert_array_equal(back[name], getattr(jm, name), err_msg=name)
         assert back[name].dtype == getattr(jm, name).dtype
     assert (back["n_kf"], back["n_pt"], back["n_obs"]) == (jm.n_kf, jm.n_pt, jm.n_obs)
-    tp, _ = tm.to_ba_problem(ICL_INTR)
+    tp, _ = tm.to_ba_problem(ICL_INTR, device="cpu")
     jp = jm.to_ba_problem(ICL_INTR)
     np.testing.assert_array_equal(n(tp.uv), np.asarray(jp.uv))
     with pytest.raises(TypeError):

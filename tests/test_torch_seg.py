@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import n, t
+from torch_parity import cam_reduce_walk, exact_reduce, n, run_cameras, t
 
 from visual_slam_tpu.ops import lie as jlie
 from visual_slam_tpu.ops.pallas import seg_kernel as jseg
@@ -95,3 +95,145 @@ def test_scale_edge_terms_match_jax():
     got = lie.scale_edge_terms(t(R), t(tr), t(i), t(j), t(meas))
     for g, w_ in zip(got, want):
         np.testing.assert_allclose(n(g), np.asarray(w_), rtol=0, atol=SCALE_EDGE_ATOL)
+
+
+# ---------------------------------------------------------------------------
+# B4's reduce plan and the kernel's order of additions (`cam_reduce_walk`,
+# tests/torch_parity.py).
+
+def _plan_case(case, seed=5):
+    """(cam (N,) int32, K, tile) for the shapes B4 meets. "kfba": the
+    keyframe BA's padding pattern, make_problem's Q=8 slots per landmark with
+    one real observation each and the padding slots on camera 0 (87% of the
+    slots on camera 0 in all)."""
+    rng = np.random.default_rng(seed)
+    if case == "ragged":  # ids >= K and < 0; N a multiple of no tile
+        N, K, tile = 3001, 257, 256
+        cam = rng.integers(0, K, N).astype(np.int32)
+        cam[::7], cam[::11], cam[::13] = K + 3, 5000, -1
+    elif case == "hot":  # 90% of the slots on 3 cameras
+        N, K, tile = 8192, 300, 1024
+        cam = rng.integers(0, K, N).astype(np.int32)
+        hot = rng.uniform(size=N) < 0.9
+        cam[hot] = np.array([7, 123, K - 1], np.int32)[rng.integers(0, 3, int(hot.sum()))]
+    elif case == "kfba":
+        P, Q, K, tile = 2048, 8, 64, None
+        cam = np.zeros((P, Q), np.int32)
+        cam[:, 0] = rng.integers(0, K, P)
+        cam = cam.reshape(-1)
+        N = P * Q
+    else:  # "wide": K larger than N
+        N, K, tile = 2000, 5000, 512
+        cam = rng.integers(0, K, N).astype(np.int32)
+    return cam, K, tile
+
+
+def _rows(C, N, seed, dyadic=False):
+    rng = np.random.default_rng(seed)
+    if dyadic:  # multiples of 1/256: every partial sum is exact in float32
+        return (rng.integers(-1024, 1024, (C, N)) / 256).astype(np.float32)
+    return rng.normal(size=(C, N)).astype(np.float32)
+
+
+PLAN_CASES = ["ragged", "hot", "kfba", "wide"]
+
+
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_reduce_plan_invariants(case):
+    cam, K, tile = _plan_case(case)
+    plan = seg_kernel.reduce_plan(t(cam), K, tile)
+    T = plan.tile
+    start = n(plan.run_start).astype(np.int64)
+    tile_ptr, words = n(plan.tile_ptr), n(plan.words).astype(np.int64)
+    n_runs, n_valid = int(tile_ptr[-1]), int(start[-1])
+    # Every in-range slot exactly once; ids outside [0,K) dropped.
+    valid = (cam >= 0) & (cam < K)
+    assert n_valid == valid.sum() and plan.max_runs >= n_runs
+    assert (start[n_runs:] == n_valid).all() and (np.diff(start[: n_runs + 1]) > 0).all()
+    tile_of = np.repeat(np.arange(len(tile_ptr) - 1), np.diff(start[tile_ptr]))
+    local = n(plan.order)[:n_valid].astype(np.int64)
+    assert (0 <= local).all() and (local < T).all()
+    slots = tile_of * T + local
+    np.testing.assert_array_equal(np.sort(slots), np.nonzero(valid)[0])
+    # Inside a tile: sorted by camera, slot order within a camera (stable).
+    c_sorted = cam[slots]
+    same_tile = tile_of[1:] == tile_of[:-1]
+    assert (c_sorted[1:][same_tile] >= c_sorted[:-1][same_tile]).all()
+    same_run = same_tile & (c_sorted[1:] == c_sorted[:-1])
+    assert (slots[1:][same_run] > slots[:-1][same_run]).all()
+    # Runs: all of one camera's slots in one tile, one run per (tile,
+    # camera); a hot camera is cut at every tile edge.
+    run_tile = tile_of[start[:n_runs]]
+    run_cam = c_sorted[start[:n_runs]]
+    np.testing.assert_array_equal(n(run_cameras(plan)), run_cam)
+    for r in range(n_runs):
+        a, b = start[r], start[r + 1]
+        assert (tile_of[a:b] == run_tile[r]).all() and (c_sorted[a:b] == run_cam[r]).all()
+        assert tile_ptr[run_tile[r]] <= r < tile_ptr[run_tile[r] + 1]
+    pairs = run_tile * K + run_cam
+    assert (np.diff(pairs) > 0).all()
+    np.testing.assert_array_equal(pairs, np.unique(tile_of * K + c_sorted))
+    # Second pass: in tile t, bit l of words[t, w] marks camera 32 w + l,
+    # whose run is base + the set bits below l.
+    mask, base = words[..., 0] & 0xFFFFFFFF, words[..., 1]
+    assert words.shape == (len(tile_ptr) - 1, -(-K // 32), 2)
+    for r in range(n_runs):
+        tt, k = int(run_tile[r]), int(run_cam[r])
+        m = int(mask[tt, k // 32])
+        assert m >> (k % 32) & 1 and base[tt, k // 32] + bin(m & ((1 << (k % 32)) - 1)).count("1") == r
+    assert sum(bin(int(m)).count("1") for m in mask.reshape(-1)) == n_runs
+    if case in ("hot", "kfba"):
+        k = np.bincount(cam[valid], minlength=K).argmax()
+        per_tile = np.bincount(np.nonzero(cam == k)[0] // T)
+        assert (run_cam == k).sum() == (per_tile > 0).sum() > 1
+        assert per_tile.max() > seg_kernel.WARP_RUN  # a warp's run
+
+
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_walk_matches_jax(case):
+    """The kernel's order of additions against the Pallas kernel (interpret
+    mode) and the XLA version; bit-equal on dyadic rows."""
+    cam, K, tile = _plan_case(case)
+    plan = seg_kernel.reduce_plan(t(cam), K, tile)
+    data = _rows(6, len(cam), seed=1)
+    got = n(cam_reduce_walk(t(data), plan))
+    want = np.asarray(jseg.cam_reduce(jnp.asarray(data), jnp.asarray(cam), K, interpret=True))
+    np.testing.assert_allclose(got, want, rtol=REDUCE_RTOL, atol=REDUCE_ATOL)
+    valid = (cam >= 0) & (cam < K)
+    xla = np.asarray(jseg.cam_reduce_xla(jnp.asarray(data[:, valid]), jnp.asarray(cam[valid]), K))
+    np.testing.assert_allclose(got, xla, rtol=REDUCE_RTOL, atol=REDUCE_ATOL)
+    dy = _rows(6, len(cam), seed=2, dyadic=True)
+    got_dy = n(cam_reduce_walk(t(dy), plan))
+    xla_dy = np.asarray(jseg.cam_reduce_xla(jnp.asarray(dy[:, valid]), jnp.asarray(cam[valid]), K))
+    np.testing.assert_array_equal(got_dy, xla_dy)
+    np.testing.assert_array_equal(got_dy, n(seg_kernel.cam_reduce_torch(t(dy), t(cam), K)))
+
+
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_walk_error_within_float32_bound(case):
+    """B4's order of additions against float64 sums: within the bound that
+    holds for any order of float32 additions and, where thousands of slots
+    share a camera, no farther off than index_add_'s sum in slot order."""
+    cam, K, tile = _plan_case(case)
+    data = t(_rows(6, len(cam), seed=3))
+    exact, bound = exact_reduce(data, t(cam), K)
+    err = (cam_reduce_walk(data, seg_kernel.reduce_plan(t(cam), K, tile)).double() - exact).abs()
+    assert (err <= bound).all()
+    if case in ("hot", "kfba"):
+        seq = (seg_kernel.cam_reduce_torch(data, t(cam), K).double() - exact).abs()
+        assert err.max() <= seq.max()
+
+
+def test_reduce_plan_default_tiles_and_bound():
+    """Tiles of 1024 to 16384 slots; the run bound needs no device read."""
+    assert seg_kernel.default_tile(16384) == 1024
+    assert seg_kernel.default_tile(1 << 22) == seg_kernel.MAX_TILE
+    assert seg_kernel.max_runs(1 << 22, 5000, 16384) == 256 * 5000
+    assert seg_kernel.max_runs(50000, 100000, 1024) == 50000
+    with pytest.raises(ValueError):
+        seg_kernel.reduce_plan(t(np.zeros(10, np.int32)), 4, tile=100)
+    with pytest.raises(ValueError):
+        seg_kernel.reduce_plan(t(np.zeros(10, np.int64)), 4)
+    empty = seg_kernel.reduce_plan(t(np.zeros(0, np.int32)), 4)
+    assert int(empty.tile_ptr[-1]) == 0
+    assert not cam_reduce_walk(torch.zeros((2, 0)), empty).any()

@@ -74,7 +74,7 @@ def _both(frames, use_depth, **keyframe):
         jba = _run(jslam, frames, use_depth)
     finally:
         jslam.close()
-    tslam = Slam(tcfg)
+    tslam = Slam(tcfg, device="cpu")
     tba = _run(tslam, frames, use_depth)
     return jslam, tslam, jba, tba
 
@@ -176,7 +176,7 @@ def test_finish_keyframe_rewrites_trajectory_entry():
     for slam_cls, cfg_cls, fr_cls in ((JSlam, JSlamConfig, JFrameResult), (Slam, SlamConfig, FrameResult)):
         cfg = cfg_cls(use_depth=True, intrinsics=ICL_INTR / 4)
         cfg.frontend.max_features = 64
-        slam = slam_cls(cfg)
+        slam = slam_cls(cfg) if slam_cls is JSlam else slam_cls(cfg, device="cpu")
         slam.process(i0, g0, d0)
         slam.trajectory.append(fr_cls(7, np.eye(3, dtype=np.float32), np.zeros(3, np.float32), 50, True))
         kf = slam.map.add_keyframe(R, t, 7)
@@ -205,7 +205,7 @@ def test_failure_paths_match_jax(rgbd, case):
     scene = rgbd[0]
     frames = list(scene.frames(0, 9))
     jcfg, tcfg = _configs(True)
-    jslam, tslam = JSlam(jcfg), Slam(tcfg)
+    jslam, tslam = JSlam(jcfg), Slam(tcfg, device="cpu")
     try:
         for slam in (jslam, tslam):
             _run(slam, frames[:6], True)

@@ -64,7 +64,7 @@ def test_slice_matches_jax(scene8):
     assert not any(f.is_keyframe for f in jslam.trajectory[1:])
     assert jslam.stats.get("track_failures", 0) == 0
 
-    tslam = run_sequence(scene, tcfg, 0, 8)
+    tslam = run_sequence(scene, tcfg, 0, 8, device="cpu")
     assert tslam.stats["keyframes"] == 0
     assert tslam.stats["track_failures"] == 0
     assert tslam.stats["ransac_frames"] == 0
@@ -206,7 +206,7 @@ def test_monocular_init_is_not_ported():
     init anchor (an identity entry), and a frame with no texture to match
     initialises nothing. The name dates from when monocular input raised;
     it is kept so that the test's record carries on."""
-    slam = Slam(SlamConfig(use_depth=False))
+    slam = Slam(SlamConfig(use_depth=False), device="cpu")
     for i in range(2):
         slam.process(i, np.zeros((64, 96), np.float32))
     assert not slam.initialized and slam.stats["init_frame"] is None

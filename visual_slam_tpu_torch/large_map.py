@@ -49,8 +49,8 @@ def run(prob: BAProblem, gt, n_iters: int, cg_iters: int,
     Returns (the script's numbers, the warm run's problem).
 
     `launches_per_optimize` counts the B4/B5 launches of the warm run alone;
-    `cost_after_first` is the first run's final cost (B4's float atomics may
-    make it differ from the warm run's in the last bits).
+    `cost_after_first` is the first run's final cost, the warm run's to the
+    bit (every sum on the path adds in a fixed order).
     """
     t_gt = gt[1]
     device = prob.R.device
@@ -88,8 +88,12 @@ def run(prob: BAProblem, gt, n_iters: int, cg_iters: int,
 
 
 def check(res: dict) -> None:
-    """Raise unless the solve converged: the cost falls below COST_DROP of
-    its start and the worst translation error falls."""
+    """Raise unless the solve converged (the cost falls below COST_DROP of
+    its start and the worst translation error falls) and repeated (the first
+    and the warm run end on the same cost, bit for bit)."""
+    if res["cost_after"] != res["cost_after_first"]:
+        raise AssertionError(f"first and warm runs differ: cost {res['cost_after_first']!r} "
+                             f"vs {res['cost_after']!r}")
     if not res["cost_after"] < COST_DROP * res["cost_before"]:
         raise AssertionError(f"cost {res['cost_before']} -> {res['cost_after']}: "
                              f"not below {COST_DROP} of the start")

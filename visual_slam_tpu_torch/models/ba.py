@@ -114,7 +114,7 @@ def pack_planar(cam, pnt, uv, w, min_p=64, min_q=8):
 
 def make_problem(R, t, X, cam, pnt, uv, w, intr, cam_fixed,
                  se_i=None, se_j=None, se_meas=None, se_w=None,
-                 min_p=64, min_q=8, depth=None, depth_weight=1.0, device="cpu"):
+                 min_p=64, min_q=8, depth=None, depth_weight=1.0, device="cuda"):
     """Build a planar BAProblem on `device` from O-indexed observation arrays.
 
     X is given in the caller's landmark indexing and compacted to the packed
@@ -339,10 +339,12 @@ def scale_edge_blocks(p: BAProblem, U: torch.Tensor, g_c: torch.Tensor):
     return U, g_c, H_ij
 
 
-def _build_planar(p: BAProblem, lm_lambda, use_depth: bool = False):
+def _build_planar(p: BAProblem, lm_lambda, plan, use_depth: bool = False):
     """All Hessian pieces in one pass over the slot planes: U (K,6,6) damped
     (scale edges folded in), V_inv (3,3,P), g_c (K,6), g_p (3,P),
-    W (6,3,K,P), H_ij (E,6,6), and the (Jc, Jp, w_irls) planes."""
+    W (6,3,K,P), H_ij (E,6,6), and the (Jc, Jp, w_irls) planes. `plan`:
+    B4's reduce plan of p.cam (seg_kernel.reduce_plan), built once per
+    problem by the caller; a CPU problem never reads it (None will do)."""
     K = p.R.shape[0]
     P = p.X.shape[0]
     N = p.cam.shape[0]
@@ -366,7 +368,7 @@ def _build_planar(p: BAProblem, lm_lambda, use_depth: bool = False):
         gpn = gpn + wJd_p * r_d
         WO = WO + wJd_c[:, None, :] * Jd_p[None, :, :]
     # B4: the 36 U entries and 6 gradient rows in one (42,N) -> (42,K) reduce.
-    red = seg_kernel.cam_reduce(torch.cat([UO.reshape(36, N), gcn]), p.cam, K)
+    red = seg_kernel.cam_reduce(torch.cat([UO.reshape(36, N), gcn]), p.cam, K, plan)
     U = red[:36].T.reshape(K, 6, 6)
     g_c = red[36:42].T
     V = VO.reshape(3, 3, P, Q).sum(-1)
@@ -473,10 +475,10 @@ def _solve_cg(p, U, V_inv, g_c, g_p, W, H_ij, cg_iters):
     return _pcg(matvec, precond, b, cg_iters)
 
 
-def _solve_delta(p: BAProblem, lm_lambda, cg_iters, points_fixed, solver="chol",
+def _solve_delta(p: BAProblem, lm_lambda, cg_iters, points_fixed, plan, solver="chol",
                  use_depth: bool = False):
     """One damped normal-equation solve: (delta_c (K,6), delta_p (P,3))."""
-    U, V_inv, g_c, g_p, W, H_ij, _ = _build_planar(p, lm_lambda, use_depth=use_depth)
+    U, V_inv, g_c, g_p, W, H_ij, _ = _build_planar(p, lm_lambda, plan, use_depth=use_depth)
     g_c = _mask_cam(g_c, p.cam_fixed)
     if points_fixed:
         delta_c = -torch.einsum("kij,kj->ki", _inv6(U), g_c)
@@ -526,12 +528,14 @@ def optimize(p: BAProblem, n_iters: int = 10, cg_iters: int = 12,
     fixed iteration count. Returns (optimized problem, final cost).
 
     solver: "chol" (explicit reduced system, dense Cholesky) or "cg"
-    (implicit Schur matvec, block-Jacobi PCG of `cg_iters` steps)."""
+    (implicit Schur matvec, block-Jacobi PCG of `cg_iters` steps). The
+    camera index is fixed, so one B4 reduce plan serves every iteration."""
     if solver not in ("chol", "cg"):
         raise ValueError(f"solver must be 'chol' or 'cg', not {solver!r}")
+    plan = seg_kernel.reduce_plan(p.cam, p.R.shape[0])
     return lm_loop(
         p, n_iters, init_lambda,
-        lambda q, lam: _solve_delta(q, lam, cg_iters, points_fixed, solver, use_depth),
+        lambda q, lam: _solve_delta(q, lam, cg_iters, points_fixed, plan, solver, use_depth),
         lambda q: _cost(q, use_depth),
     )
 

@@ -51,9 +51,9 @@ def _cexp(x_t: torch.Tensor, cam: torch.Tensor) -> torch.Tensor:
     return seg_kernel.cam_expand(x_t.contiguous(), cam)
 
 
-def _cred(d_t: torch.Tensor, cam: torch.Tensor, K: int) -> torch.Tensor:
-    """(C,N) per-slot rows -> (C,K) per-camera sums (B4)."""
-    return seg_kernel.cam_reduce(d_t.contiguous(), cam, K)
+def _cred(d_t: torch.Tensor, cam: torch.Tensor, K: int, plan) -> torch.Tensor:
+    """(C,N) per-slot rows -> (C,K) per-camera sums (B4 over `plan`)."""
+    return seg_kernel.cam_reduce(d_t.contiguous(), cam, K, plan)
 
 
 def _point_sum(d_t: torch.Tensor, P: int) -> torch.Tensor:
@@ -143,9 +143,11 @@ def _inv3_rows(V9: torch.Tensor) -> torch.Tensor:
     return torch.stack([A, B, C, D, E, F, G, H, I]) / det
 
 
-def _build(p: BAProblem, lm_lambda):
+def _build(p: BAProblem, lm_lambda, plan):
     """Hessian pieces, memory linear in N: U (K,6,6) damped, V_inv (9,P),
-    g_c (K,6), g_p (3,P), WO (18,N), H_ij (E,6,6) scale-edge cross blocks."""
+    g_c (K,6), g_p (3,P), WO (18,N), H_ij (E,6,6) scale-edge cross blocks.
+    `plan`: B4's reduce plan of p.cam, built once per problem by the caller
+    (a CPU problem never reads it)."""
     K = p.R.shape[0]
     P = p.X.shape[0]
     r, Xc, Rn, iz, w_irls = _project(p)
@@ -157,7 +159,7 @@ def _build(p: BAProblem, lm_lambda):
     # rows, stacked (27,N).
     u_rows = [wJc[i] * Jc[j] + wJc[6 + i] * Jc[6 + j] for (i, j) in _TRIU6]
     g_rows = [wJc[i] * r[0] + wJc[6 + i] * r[1] for i in range(6)]
-    red = _cred(torch.stack(u_rows + g_rows), p.cam, K)  # (27,K)
+    red = _cred(torch.stack(u_rows + g_rows), p.cam, K, plan)  # (27,K)
     U = torch.stack([red[k] for k in _SYM36], dim=1).reshape(K, 6, 6)
     g_c = red[21:27].T
 
@@ -193,7 +195,7 @@ def _vinv_apply(V_inv: torch.Tensor, t_p: torch.Tensor) -> torch.Tensor:
     return torch.stack([sum(V_inv[3 * i + j] * t_p[j] for j in range(3)) for i in range(3)])
 
 
-def _schur_matvec(x, p, U, V_inv, WO, H_ij):
+def _schur_matvec(x, p, U, V_inv, WO, H_ij, plan):
     """y = (U - W V^-1 W^T) x without forming S: a camera expand, two per-slot
     contractions, a point reduce and expand, one camera reduce."""
     K = U.shape[0]
@@ -204,16 +206,16 @@ def _schur_matvec(x, p, U, V_inv, WO, H_ij):
     xc6 = _cexp(x.T, p.cam)  # (6,N)
     t1p = _point_sum(_wt_apply(WO, xc6), P)  # (3,P)
     t2n = _point_expand(_vinv_apply(V_inv, t1p), N)  # (3,N)
-    y2 = _cred(_w_apply(WO, t2n), p.cam, K)  # (6,K)
+    y2 = _cred(_w_apply(WO, t2n), p.cam, K, plan)  # (6,K)
     y = add_cross_blocks(y - y2.T, x, p, H_ij)
     return _mask_cam(y, p.cam_fixed)
 
 
-def _solve_delta(p, lm_lambda, cg_iters, points_fixed):
+def _solve_delta(p, lm_lambda, cg_iters, points_fixed, plan):
     K = p.R.shape[0]
     P = p.X.shape[0]
     N = p.cam.shape[0]
-    U, V_inv, g_c, g_p, WO, H_ij = _build(p, lm_lambda)
+    U, V_inv, g_c, g_p, WO, H_ij = _build(p, lm_lambda, plan)
     g_c = _mask_cam(g_c, p.cam_fixed)
     U_inv = _inv6(U)
 
@@ -222,11 +224,11 @@ def _solve_delta(p, lm_lambda, cg_iters, points_fixed):
         return _mask_cam(delta_c, p.cam_fixed), torch.zeros_like(p.X)
 
     Vg_n = _point_expand(_vinv_apply(V_inv, g_p), N)
-    b_sub = _cred(_w_apply(WO, Vg_n), p.cam, K)  # (6,K)
+    b_sub = _cred(_w_apply(WO, Vg_n), p.cam, K, plan)  # (6,K)
     b = _mask_cam(-(g_c - b_sub.T), p.cam_fixed)
 
     def matvec(x):
-        return _schur_matvec(x, p, U, V_inv, WO, H_ij)
+        return _schur_matvec(x, p, U, V_inv, WO, H_ij, plan)
 
     def precond(x):
         return _mask_cam(torch.einsum("kij,kj->ki", U_inv, x), p.cam_fixed)
@@ -243,9 +245,11 @@ def optimize(p: BAProblem, n_iters: int = 10, cg_iters: int = 12,
              points_fixed: bool = False, init_lambda: float = 1e-4):
     """LM loop with the accept/reject structure of ba.optimize and the
     large-map solve. Returns (optimized problem, final cost as a 0-d
-    tensor). Branch-free: no host read inside the loop."""
+    tensor). Branch-free: no host read inside the loop. The camera index is
+    fixed, so one B4 reduce plan serves all n*(g+2) reduces."""
+    plan = seg_kernel.reduce_plan(p.cam, p.R.shape[0])
     return lm_loop(
         p, n_iters, init_lambda,
-        lambda q, lam: _solve_delta(q, lam, cg_iters, points_fixed),
+        lambda q, lam: _solve_delta(q, lam, cg_iters, points_fixed, plan),
         _cost,
     )

@@ -184,7 +184,7 @@ class SlamMap:
 
     def to_ba_problem(self, intr: np.ndarray, fix_first: bool = True,
                       scale_edge_weight: float = 10.0, depth_weight: float = 0.0,
-                      device="cpu"):
+                      device="cuda"):
         """The whole map as a planar BAProblem on `device` (≙ the graph build
         of localBundleAdjustement, LocalBA.py:153-172, with the parent->child
         scale-edge chain :159-162). Returns (problem, meta): `meta` maps the

@@ -40,8 +40,9 @@ _SIGNATURES = {
     "vslam_detect_blur": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _P, _I],
     # img, uv, patches, H, W, K, stream, device
     "vslam_patch": [_P, _P, _P, _I, _I, _I, _P, _I],
-    # data, cam, out (zeroed), C, N, K, stream, device
-    "vslam_cam_reduce": [_P, _P, _P, _I, _L, _I, _P, _I],
+    # data, order, run_start, tile_ptr, words, partial, out, C, N, K, tile,
+    # max_runs, stream, device
+    "vslam_cam_reduce": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _L, _P, _I],
     # x, cam, out, C, N, K, stream, device
     "vslam_cam_expand": [_P, _P, _P, _I, _L, _I, _P, _I],
 }

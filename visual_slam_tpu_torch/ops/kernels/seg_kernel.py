@@ -4,9 +4,8 @@ Replace visual_slam_tpu/ops/pallas/seg_kernel.py:_cam_reduce_kernel (via
 `cam_reduce`) and _cam_expand_kernel (via `cam_expand`). The TPU kernels
 multiply by an implicit two-level one-hot matrix because XLA's scatter and
 gather were row-rate-limited there; the CUDA kernels (csrc/seg.cu) gather
-and add with native loads and float atomics instead. The header of the
-source says what bounds them on the H100 and why the reduce takes
-block-private shared-memory sums.
+with native loads, and the reduce takes a deterministic segmented sum over
+a reduce plan. The header of the source says what bounds them on the H100.
 
     cam_reduce: (C,N) per-slot rows, (N,) camera ids, K -> (C,K) sums
     cam_expand: (C,K) per-camera rows, (N,) camera ids  -> (C,N) copies
@@ -14,21 +13,124 @@ block-private shared-memory sums.
 A camera id outside [0,K) contributes nothing to the reduce and receives 0
 from the expand (the Pallas kernels' padding rule). `cam_expand_torch` and
 `cam_reduce_torch` are the plain PyTorch versions. The expand copies, so
-the kernel is bit-equal to its plain version. The reduce adds with float
-atomics in an order that changes from run to run; it agrees with its plain
-version to rtol 1e-5 / atol 1e-4, the JAX package's own bar between its
-kernel and its XLA version.
+the kernel is bit-equal to its plain version. The reduce adds in an order
+fixed by its plan (`reduce_plan`), the same on every call and every run
+(tests/torch_parity.py's `cam_reduce_walk` repeats its additions in
+PyTorch). Against its plain version (`index_add_`, another order) it
+agrees to rtol 1e-5 / atol 1e-4, the JAX package's own bar between its
+kernel and its XLA version, where a camera has few slots, and exactly
+where every partial sum is exact in float32. Where thousands of slots
+share a camera, `index_add_`'s own float32 sums drift past that bar; B4's
+tree of partial sums stays closer to the float64 sums there.
+
+The plan is integer bookkeeping on the camera ids, built with PyTorch ops on
+the ids' device and without a host read. A BA problem's ids stay fixed over
+its LM and CG iterations, so `ba.optimize` and `ba_large.optimize` build one
+plan per call and pass it to every `cam_reduce`.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from . import build
 
-reduce_launches = 0  # B4 launches
+reduce_launches = 0  # B4 calls (each is two kernel launches, counted once)
 expand_launches = 0  # B5 launches
 
 _MAX_K = 1 << 28  # keeps K * sizeof(float) inside the C side's int
+WARP_RUN = 32  # B4 sums a longer run of one camera in a tile with a warp
+TILE_GROUPS = 4  # B4's second pass splits the tiles into this many shares, in order
+MIN_TILE, MAX_TILE = 1024, 16384  # MAX_TILE: an int16 offset; 3 rows fill shared memory
+
+
+class ReducePlan(NamedTuple):
+    """How kernel B4 walks the slots of one camera index `cam` (N,) with K
+    cameras. Slots are cut into tiles of `tile` contiguous slots. "Sorted
+    order" lists the in-range slots tile by tile, each tile's stably sorted
+    by camera; a camera's slots inside one tile are a run, and runs are
+    numbered in sorted order. `max_runs` bounds the number of runs from the
+    shapes alone, so building a plan never reads the device."""
+
+    K: int
+    N: int
+    tile: int
+    order: torch.Tensor  # (N rounded up to a multiple of 8,) int16: slot - tile * T at each sorted position
+    run_start: torch.Tensor  # (max_runs+1,) int32: first sorted position; unused runs start at the end
+    tile_ptr: torch.Tensor  # (n_tiles+1,) int32: tile t owns runs [tile_ptr[t], tile_ptr[t+1])
+    # (n_tiles, ceil(K/32), 2) int32 (mask, base): bit l of mask marks a run
+    # of camera 32 w + l in tile t; base is tile t's first run with camera >= 32 w
+    words: torch.Tensor
+
+    @property
+    def max_runs(self) -> int:
+        return self.run_start.shape[0] - 1
+
+    def nbytes(self) -> int:
+        return sum(a.numel() * a.element_size() for a in self[3:])
+
+
+def default_tile(N: int) -> int:
+    """Tiles of up to MAX_TILE slots, at least about 128 of them where N allows."""
+    tile = MIN_TILE
+    while tile < MAX_TILE and tile * 128 < N:
+        tile *= 2
+    return tile
+
+
+def max_runs(N: int, K: int, tile: int) -> int:
+    """Most runs a plan can hold: one per (tile, camera), never more than N."""
+    return max(1, min(N, -(-N // tile) * min(K, tile)))
+
+
+def reduce_plan(cam: torch.Tensor, K: int, tile: int | None = None) -> ReducePlan:
+    """The reduce plan of camera ids `cam` (N,) int32 over K cameras, on
+    cam's device: a stable sort, a cumulative sum and binary searches, each
+    of a shape fixed by (N, K, tile)."""
+    if cam.dtype != torch.int32 or cam.dim() != 1:
+        raise ValueError("reduce_plan takes (N,) int32 camera ids")
+    N = cam.shape[0]
+    T = default_tile(N) if tile is None else tile
+    if T < 16 or T > MAX_TILE or T & (T - 1):
+        raise ValueError(f"reduce_plan: tile {T} is not a power of two in [16, {MAX_TILE}]")
+    if not 1 <= K <= _MAX_K or N >= 1 << 31:
+        raise ValueError(f"reduce_plan: K = {K}, N = {N} out of range")
+    dev, i32 = cam.device, torch.int32
+    n_tiles = -(-N // T)
+    R = max_runs(N, K, T)
+    W = -(-K // 32)
+    if N == 0:
+        z = lambda *n: torch.zeros(n, dtype=i32, device=dev)  # noqa: E731
+        return ReducePlan(K, N, T, torch.zeros(0, dtype=torch.int16, device=dev), z(R + 1), z(1),
+                          z(0, W, 2))
+    kt = torch.int64 if n_tiles * K >= (1 << 31) - 1 else i32
+    slot = torch.arange(N, dtype=torch.int64, device=dev)
+    sentinel = n_tiles * K  # out-of-range ids sort after every tile
+    valid = (cam >= 0) & (cam < K)
+    key = torch.where(valid, (slot // T).to(kt) * K + cam.to(kt), sentinel)
+    skey, perm = torch.sort(key, stable=True)  # ties keep slot order
+    order = torch.zeros(-(-N // 8) * 8, dtype=torch.int16, device=dev)  # 16-byte copies
+    order[:N] = perm % T
+    is_start = skey < sentinel
+    is_start[1:] &= skey[1:] != skey[:-1]
+    count = torch.cumsum(is_start, 0)  # runs started at or before each position
+    n_runs, n_valid = count[-1], (skey < sentinel).sum()
+    run_start = torch.minimum(
+        torch.searchsorted(count, torch.arange(1, R + 2, device=dev)), n_valid)
+    real = torch.arange(R, device=dev) < n_runs
+    rkey = torch.where(real, skey[run_start[:R].clamp(max=N - 1)], sentinel).to(torch.int64)
+    tile_ptr = torch.searchsorted(rkey, torch.arange(n_tiles + 1, device=dev) * K)
+    base = torch.searchsorted(rkey, (torch.arange(n_tiles, device=dev)[:, None] * K
+                                     + torch.arange(W, device=dev) * 32).reshape(-1))
+    rcam = rkey % K
+    word = torch.where(real, (rkey // K) * W + rcam // 32, n_tiles * W)  # unused runs: a spare word
+    mask = torch.zeros(n_tiles * W + 1, dtype=torch.int64, device=dev)
+    mask.index_add_(0, word, torch.where(real, torch.ones_like(rcam) << (rcam % 32), 0))
+    mask = mask[:-1]
+    mask = torch.where(mask >= 1 << 31, mask - (1 << 32), mask)  # the same 32 bits as int32
+    words = torch.stack([mask, base], dim=1).reshape(n_tiles, W, 2)
+    return ReducePlan(K, N, T, order, run_start.to(i32), tile_ptr.to(i32), words.to(i32))
 
 
 def _slot_index(cam: torch.Tensor, K: int) -> torch.Tensor:
@@ -61,9 +163,12 @@ def _check(rows: torch.Tensor, cam: torch.Tensor, K: int, name: str) -> None:
         raise ValueError(f"{name}: K = {K} cameras is outside [1, {_MAX_K}]")
 
 
-def cam_reduce(data: torch.Tensor, cam: torch.Tensor, K: int) -> torch.Tensor:
+def cam_reduce(data: torch.Tensor, cam: torch.Tensor, K: int,
+               plan: ReducePlan | None = None) -> torch.Tensor:
     """(C,N) float32, (N,) int32, K -> (C,K) float32 per-camera sums.
-    CPU tensor: the plain version. CUDA tensor: kernel B4, one launch."""
+    CPU tensor: the plain version (`plan` is not read). CUDA tensor: kernel
+    B4 over `plan`, built here from (cam, K) when not given; one call, two
+    launches."""
     global reduce_launches
     if data.device.type == "cpu":
         return cam_reduce_torch(data, cam, K)
@@ -71,9 +176,17 @@ def cam_reduce(data: torch.Tensor, cam: torch.Tensor, K: int) -> torch.Tensor:
     C, N = data.shape
     if cam.shape[0] != N:
         raise ValueError(f"cam_reduce: {cam.shape[0]} camera ids for {N} slots")
-    out = torch.zeros((C, K), dtype=torch.float32, device=data.device)
+    if plan is None:
+        plan = reduce_plan(cam, K)
+    if plan.K != K or plan.N != N or plan.order.device != data.device:
+        raise ValueError(f"cam_reduce: a plan for K={plan.K}, N={plan.N} on "
+                         f"{plan.order.device}, given K={K}, N={N} on {data.device}")
+    partial = torch.empty((C, plan.max_runs), dtype=torch.float32, device=data.device)
+    out = torch.empty((C, K), dtype=torch.float32, device=data.device)
     err = build.library().vslam_cam_reduce(
-        data.data_ptr(), cam.data_ptr(), out.data_ptr(), C, N, K,
+        data.data_ptr(), plan.order.data_ptr(), plan.run_start.data_ptr(),
+        plan.tile_ptr.data_ptr(), plan.words.data_ptr(), partial.data_ptr(), out.data_ptr(),
+        C, N, K, plan.tile, plan.max_runs,
         torch.cuda.current_stream(data.device).cuda_stream, data.device.index,
     )
     build.check(err, "vslam_cam_reduce")

@@ -264,7 +264,7 @@ class Slam:
     All tensors live on `device`; a torch.Generator seeded from cfg.seed
     draws the RANSAC minimal sets."""
 
-    def __init__(self, config: SlamConfig | None = None, device="cpu"):
+    def __init__(self, config: SlamConfig | None = None, device="cuda"):
         self.cfg = config or SlamConfig()
         self.device = torch.device(device)
         self.map = SlamMap(self.cfg.map)
@@ -777,7 +777,7 @@ class Slam:
 
 
 def run_sequence(dataset, config: SlamConfig | None = None, start: int = 0,
-                 stop: int | None = None, device="cpu") -> Slam:
+                 stop: int | None = None, device="cuda") -> Slam:
     """Run SLAM serially over a dataset (any object with the reader's
     `frames(start, stop)` -> (idx, gray, depth) interface); returns the Slam."""
     slam = Slam(config, device=device)

@@ -18,7 +18,7 @@ from ..models.ba import BAProblem, make_problem
 from ..ops import lie
 
 
-def build_loop_map(K: int, P: int, Q: int, seed: int = 0, device="cpu"):
+def build_loop_map(K: int, P: int, Q: int, seed: int = 0, device="cuda"):
     """Synthetic config-#5 map. Returns (BAProblem on `device`,
     (R_cw, t_cw, X_gt) as NumPy ground truth)."""
     rng = np.random.RandomState(seed)
@@ -103,7 +103,7 @@ INTR = np.array([481.20, 480.0, 319.5, 239.5], np.float32)  # ICL-NUIM
 
 
 def arc_problem(K: int = 6, P: int = 300, noise_px: float = 0.0, pose_noise: float = 0.0,
-                point_noise: float = 0.0, seed: int = 0, device="cpu"):
+                point_noise: float = 0.0, seed: int = 0, device="cuda"):
     """An online-BA problem: K cameras on an arc (turning 0.04 rad per
     camera) looking at P points, full visibility, built with
     ba.make_problem (port of tests/test_ba.py:synth_problem; the NumPy draws
