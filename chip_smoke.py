@@ -7,8 +7,9 @@ Phases, each raising on failure:
   1. device    require CUDA; print the card's name and power limit
   2. build     compile the hand-written kernels (csrc/*.cu) with nvcc
   3. B1        detect+blur kernel (and its blur-off B2 mode) vs its plain
-               PyTorch version on the card, on smoothed noise and a
-               checkerboard (plateau ties)
+               PyTorch version on the card, bit for bit, on smoothed noise
+               and a checkerboard (plateau ties) at 480x640 and on uniform
+               noise at ragged sizes, each with border 16 and 0
   4. B3        patch kernel vs its plain version, bit-exact, K=1024
   5. frontend  the whole front-end on the card vs the port's CPU path
   6. RGB-D     the SLAM loop, run_sequence over 60 synthetic RGB-D frames
@@ -20,7 +21,8 @@ Phases, each raising on failure:
                from float64 sums than index_add_), B4's plan
   7. ransac    one frame tracked from a prior ~0.3 m / 10 deg off
   8. timing    each kernel beside its plain version at the path's shapes,
-               and its bound; B3 beside one PyTorch gather
+               and its bound; B1/B2 also by queued events, beside a copy
+               floor for B1's bytes; B3 beside one PyTorch gather
   9. profile   device time per tracked frame, by kernel (torch.profiler)
  10. B4/B5     segment reduce/expand kernels vs their plain versions at
                BASELINE.json config-#5 shapes, at ragged shapes with
@@ -59,6 +61,8 @@ import warnings
 import numpy as np
 import torch
 
+from visual_slam_tpu_torch.utils.cuda_timing import cuda_ms, device_ms, device_us, queued_ms
+
 FRAMES = 60
 ATE_LIMIT_M = 0.02  # the 200-frame ATE bar of PARITY.md
 MONO_STRIDE, MONO_FRAMES = 2, 90  # every 2nd frame, 90 processed
@@ -73,8 +77,7 @@ MIN_MONO_KEYFRAMES, MIN_MONO_BA = 3, 5
 # point's disagreement along its ray grows as 1/parallax (up to 7.7e-4 of its
 # range on the init pair, on an H100) but moves its image by parallax x that.
 GEOM_POSE_ATOL, GEOM_PARALLAX_ATOL, GEOM_REPROJ_PX = 1e-4, 1e-3, 0.02
-PEAK_RTOL = 1e-5
-BLUR_ATOL = 1e-6
+PEAK_RTOL = 1e-5  # front-end score, card vs CPU
 MIN_DESC_BIT_AGREEMENT = 0.995
 PRIOR_OFFSET_M = np.array([0.2, -0.15, 0.15])  # 0.29 m off the true centre
 PRIOR_OFFSET_DEG = 10.0
@@ -98,68 +101,20 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters=200, warmup=20) -> float:
-    """Time per call of fn() in ms, between CUDA events around `iters`
-    back-to-back calls: the device's time, or the host's where launching
-    the calls takes longer than running them."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def _device_us(evt) -> float:
-    return getattr(evt, "self_device_time_total", None) or getattr(evt, "self_cuda_time_total", 0)
-
-
-def device_ms(fn, iters=50, tries=3) -> tuple[float, str]:
-    """Device time of one fn() call in ms, and how it was measured.
-
-    "profiler": the summed time of every CUDA kernel and copy it runs, from
-    torch.profiler, over `iters` calls. A profiler window that recorded no
-    device activity is taken again; after `tries` empty windows, "queued"
-    (queued_ms)."""
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(tries):
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(_device_us(e) for e in prof.key_averages())
-        if us > 0:
-            return us / 1e3 / iters, "profiler"
-    return queued_ms(fn, iters), "queued"
-
-
-def queued_ms(fn, iters=50) -> float:
-    """Device time of one fn() call in ms: CUDA events around `iters` calls
-    queued behind a device-side sleep, so they run back to back (includes
-    the ~1 us gaps between launches). Needs no profiler, so it cannot miss
-    kernels the way a profiler window that drops events does."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(2e8))  # ~0.1 s: the host queues every call meanwhile
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def smooth_noise(h, w, seed):
     from scipy import ndimage
 
     rng = np.random.default_rng(seed)
     return ndimage.gaussian_filter(rng.uniform(0, 1, (h, w)), 3.0).astype(np.float32)
+
+
+def uniform_noise(h, w, seed):
+    return np.random.default_rng(seed).uniform(0, 1, (h, w)).astype(np.float32)
+
+
+# B1's ragged sizes (tests/torch_parity.py): no side a multiple of its 60x20
+# tile, images narrower or shorter than a tile, one inside the border frame.
+RAGGED_SIZES = [(479, 637), (240, 320), (45, 70), (37, 600), (30, 30)]
 
 
 def checkerboard(h=480, w=640, cell=40):
@@ -465,7 +420,7 @@ def seg_phases(dev, smi) -> dict:
         _, cost = ba_large.optimize(prob, n_iters=n, cg_iters=g, init_lambda=CONFIG5["lm_lambda"])
         float(cost)
         wall = time.perf_counter() - t0
-    rows = [(e.key, _device_us(e), e.count) for e in prof.key_averages() if _device_us(e) > 0]
+    rows = [(e.key, device_us(e), e.count) for e in prof.key_averages() if device_us(e) > 0]
     dev_ms = sum(r[1] for r in rows) / 1e3
     log(f"[LM trace] one warm optimize ({n} LM iters): {dev_ms:.3f} ms device time, "
         f"{sum(r[2] for r in rows)} device ops, {1e3 * wall:.3f} ms wall (profiled): "
@@ -658,26 +613,36 @@ def main() -> int:
     log(f"[build] {lib_path.name} ready in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {build.build_seconds if build.build_seconds is not None else 'cached'})")
 
-    # 3. B1 (and B2 mode) vs plain, on the card
+    # 3. B1 (and B2 mode) vs plain, on the card: bit for bit, -inf included,
+    #    at 480x640 and at ragged sizes, with the 16 px border frame and none
     b1_err = 0.0
-    for name, img_np in [("noise", smooth_noise(480, 640, 0)), ("checker", checkerboard())]:
+    images = [("noise 480x640", smooth_noise(480, 640, 0)), ("checker 480x640", checkerboard())]
+    images += [(f"raw {h}x{w}", uniform_noise(h, w, h + w)) for h, w in RAGGED_SIZES]
+    for name, img_np in images:
         img = torch.from_numpy(img_np).to(dev)
-        pk, bk = detect_kernel.corner_peaks_and_blur(img)
-        pp, bp = detect_kernel.corner_peaks_and_blur_torch(img)
-        p2 = detect_kernel.corner_peaks(img)
-        torch.cuda.synchronize()
-        fin = torch.isfinite(pp)
-        if not torch.equal(torch.isfinite(pk), fin) or not torch.equal(torch.isfinite(p2), fin):
-            raise AssertionError(f"B1 {name}: finite-peak masks differ")
-        torch.testing.assert_close(pk[fin], pp[fin], rtol=PEAK_RTOL, atol=0)
-        torch.testing.assert_close(p2[fin], pp[fin], rtol=PEAK_RTOL, atol=0)
-        torch.testing.assert_close(bk, bp, rtol=0, atol=BLUR_ATOL)
-        perr = (pk[fin] - pp[fin]).abs().max().item()
-        berr = (bk - bp).abs().max().item()
-        b1_err = max(b1_err, perr, berr)
-        log(f"[B1] {name}: {int(fin.sum())} finite peaks, peak max_abs_err {perr:.3g} "
-            f"(bit-equal {torch.equal(pk[fin], pp[fin])}), blur max_abs_err {berr:.3g} "
-            f"(bit-equal {torch.equal(bk, bp)}); B2 mode bit-equal {torch.equal(p2, pk)}")
+        for border in (16, 0):
+            pk, bk = detect_kernel.corner_peaks_and_blur(img, border=border)
+            pp, bp = detect_kernel.corner_peaks_and_blur_torch(img, border=border)
+            p2 = detect_kernel.corner_peaks(img, border=border)
+            torch.cuda.synchronize()
+            fin = torch.isfinite(pp)
+            if not (torch.equal(pk, pp) and torch.equal(bk, bp) and torch.equal(p2, pp)):
+                raise AssertionError(
+                    f"B1 {name} border {border}: not bit-equal to the plain version (peaks "
+                    f"{torch.equal(pk, pp)}, blur {torch.equal(bk, bp)}, B2 mode {torch.equal(p2, pp)})")
+            if min(img.shape) <= 2 * border and fin.any():
+                raise AssertionError(f"B1 {name} border {border}: finite peaks inside the border frame")
+            perr = (pk[fin] - pp[fin]).abs().max().item() if fin.any() else 0.0
+            berr = (bk - bp).abs().max().item()
+            b1_err = max(b1_err, perr, berr)
+            log(f"[B1] {name} border {border}: {int(fin.sum())} finite peaks; peaks, blur and the "
+                f"B2 mode bit-equal to the plain version")
+
+    # B1's branch-free square root against CUDA's IEEE one, every float
+    bad, first = detect_kernel.sqrt_check(dev)
+    if bad:
+        raise AssertionError(f"B1's square root differs from __fsqrt_rn on {bad} floats (first {first:#x})")
+    log("[B1] square root equal to __fsqrt_rn on every float from +0 to +inf")
 
     # 4. B3 vs plain, bit-exact
     img = torch.from_numpy(np.random.default_rng(2).uniform(0, 1, (480, 640)).astype(np.float32)).to(dev)
@@ -834,9 +799,21 @@ def main() -> int:
         p1, k1, k2, p2 = (device_ms(f) for f in (plain_fn, kernel_fn, kernel_fn, plain_fn))
         times[name] = (min(k1, k2)[0], min(p1, p2)[0])
         methods = sorted({m for _, m in (p1, k1, k2, p2)})
+        queued = ""
+        if name in ("B1", "B2"):
+            p1, k1, k2, p2 = (queued_ms(f) for f in (plain_fn, kernel_fn, kernel_fn, plain_fn))
+            queued = f"; queued events: kernel {min(k1, k2):.4f} ms, plain {min(p1, p2):.4f} ms"
         log(f"[timing] {name}: kernel {times[name][0]:.4f} ms device / {kc:.4f} ms per call; "
             f"plain {times[name][1]:.4f} ms device / {pc:.4f} ms per call "
-            f"(device time by {'+'.join(methods)}; {smi})")
+            f"(device time by {'+'.join(methods)}{queued}; {smi})")
+    # A floor for B1's bytes, not a library call: one PyTorch copy that reads
+    # the frame once and writes two frames' worth.
+    floor_fn = lambda: gray.repeat(2, 1)  # noqa: E731
+    floor_dev, how = device_ms(floor_fn)
+    floor_queued = queued_ms(floor_fn)
+    log(f"[timing] B1 copy floor (gray.repeat(2, 1): reads {gray.numel() * 4 / 1e6:.2f} MB, writes "
+        f"{2 * gray.numel() * 4 / 1e6:.2f} MB): {floor_dev:.4f} ms device ({how}), {floor_queued:.4f} ms "
+        f"queued events; B1 takes {times['B1'][0] / floor_dev:.3f}x the floor; {smi}")
     # B3's library call: one advanced-indexing gather (B1 and B2 have none).
     library_fn = library_patch(blurred, uv_path)
     if not torch.equal(library_fn(), patch_kernel.extract_patches(blurred, uv_path)):
@@ -864,7 +841,7 @@ def main() -> int:
         for frame in rendered[1:1 + n_prof]:
             pslam.process(*frame)
         torch.cuda.synchronize()
-    rows = [(e.key, _device_us(e), e.count) for e in prof.key_averages() if _device_us(e) > 0]
+    rows = [(e.key, device_us(e), e.count) for e in prof.key_averages() if device_us(e) > 0]
     dev_ms = sum(r[1] for r in rows) / 1e3 / n_prof
     frame_syncs = count_syncs(lambda: pslam.process(*rendered[1 + n_prof]))
     wall_ms = statistics.median(slam.timers.ms["extract"]) + statistics.median(slam.timers.ms["track"])

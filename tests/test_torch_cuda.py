@@ -8,8 +8,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import (cam_reduce_walk, checkerboard, desc_bits, edge_keypoints, exact_reduce,
-                          smooth_noise)
+from torch_parity import (RAGGED_SIZES, cam_reduce_walk, checkerboard, desc_bits, edge_keypoints,
+                          exact_reduce, smooth_noise, uniform_noise)
 
 from visual_slam_tpu_torch import convert
 from visual_slam_tpu_torch.config import SlamConfig
@@ -23,8 +23,7 @@ from visual_slam_tpu_torch.utils.scene import SyntheticRGBDScene
 
 pytestmark = pytest.mark.cuda
 
-PEAK_RTOL = 1e-5  # kernel and plain run the same float ops: expect bit-equality
-BLUR_ATOL = 1e-6
+PEAK_RTOL = 1e-5  # front-end score, card vs CPU (B1 itself is bit-equal to plain)
 MIN_DESC_BIT_AGREEMENT = 0.995  # card vs CPU: matmul sums in another order
 POSE_ATOL = 1e-4
 # B4 against index_add_, which adds in another order: the JAX package's bar
@@ -50,21 +49,36 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("name", ["noise", "checker"])
-def test_detect_blur_matches_plain(cuda, name):
-    """B1 and its B2 mode vs the plain version, both on the card."""
-    img_np = smooth_noise(480, 640) if name == "noise" else checkerboard()
-    img = torch.from_numpy(img_np).to(cuda)
+DETECT_IMAGES = {
+    "noise_480x640": lambda: smooth_noise(480, 640),
+    "checker_480x640": checkerboard,
+    **{f"raw_{h}x{w}": (lambda h=h, w=w: uniform_noise(h, w, seed=h + w)) for h, w in RAGGED_SIZES},
+}
+
+
+@pytest.mark.parametrize("border", [16, 0])
+@pytest.mark.parametrize("name", sorted(DETECT_IMAGES))
+def test_detect_blur_matches_plain(cuda, name, border):
+    """B1 and its B2 mode vs the plain version, both on the card: bit-equal
+    peaks (-inf included) and blur, at 480x640 and at ragged sizes, with the
+    16 px border frame and with none."""
+    img = torch.from_numpy(DETECT_IMAGES[name]()).to(cuda)
     n0, n2 = detect_kernel.launches, detect_kernel.launches_no_blur
-    pk, bk = detect_kernel.corner_peaks_and_blur(img)
-    p2 = detect_kernel.corner_peaks(img)
-    pp, bp = detect_kernel.corner_peaks_and_blur_torch(img)
+    pk, bk = detect_kernel.corner_peaks_and_blur(img, border=border)
+    p2 = detect_kernel.corner_peaks(img, border=border)
+    pp, bp = detect_kernel.corner_peaks_and_blur_torch(img, border=border)
     torch.cuda.synchronize()
     assert (detect_kernel.launches, detect_kernel.launches_no_blur) == (n0 + 1, n2 + 1)
-    fin = torch.isfinite(pp)
-    assert torch.equal(torch.isfinite(pk), fin) and torch.equal(p2, pk)
-    torch.testing.assert_close(pk[fin], pp[fin], rtol=PEAK_RTOL, atol=0)
-    torch.testing.assert_close(bk, bp, rtol=0, atol=BLUR_ATOL)
+    assert torch.equal(pk, pp) and torch.equal(bk, bp)
+    assert torch.equal(p2, pk) and torch.equal(p2, detect_kernel.corner_peaks_torch(img, border=border))
+    if min(img.shape) <= 2 * border:
+        assert not torch.isfinite(pk).any()
+
+
+def test_detect_sqrt_matches_ieee(cuda):
+    """B1's branch-free square root equals CUDA's IEEE sqrt on every float
+    from +0 to +inf (the check runs on the card)."""
+    assert detect_kernel.sqrt_check(cuda) == (0, 0xFFFFFFFF)
 
 
 def test_patch_matches_plain(cuda):

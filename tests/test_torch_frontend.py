@@ -6,7 +6,8 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from torch_parity import checkerboard, desc_bits, edge_keypoints, n, smooth_noise, t
+from torch_parity import (RAGGED_SIZES, checkerboard, desc_bits, edge_keypoints, n, smooth_noise, t,
+                          uniform_noise)
 
 from visual_slam_tpu.models import frontend as jfrontend
 from visual_slam_tpu.ops import descriptor as jdesc, descriptor_mxu as jmxu
@@ -33,10 +34,13 @@ def _images():
         "noise_480x640": smooth_noise(480, 640, sigma=3.0, seed=0),
         "checker_480x640": checkerboard(),
         "raw_480x640": rng.uniform(0, 1, (480, 640)).astype(np.float32),
+        **{f"raw_{h}x{w}": uniform_noise(h, w, seed=h + w) for h, w in RAGGED_SIZES},
+        "raw_45x70_border0": uniform_noise(45, 70, seed=115),
     }
 
 
 IMAGES = _images()
+BORDER = {"raw_45x70_border0": 0}  # the rest: the default 16 px frame
 
 
 def test_constant_tables_bit_equal():
@@ -56,14 +60,19 @@ def test_constant_tables_bit_equal():
 @pytest.mark.parametrize("name", sorted(IMAGES))
 def test_detect_blur_plain_matches_pallas(name):
     """B1 plain vs corner_peaks_and_blur_pallas (interpret): the peak
-    positions exactly, the response to PEAK_RTOL, the blur to BLUR_ATOL."""
-    img = IMAGES[name]
+    positions exactly, the response to PEAK_RTOL, the blur to BLUR_ATOL; at
+    ragged sizes, with border 0, and on an image no larger than the border
+    frame (no finite peak)."""
+    img, border = IMAGES[name], BORDER.get(name, 16)
     pj, bj = (np.asarray(a) for a in jdetect.corner_peaks_and_blur_pallas(
-        jnp.asarray(img), interpret=True))
-    pt, bt = (n(a) for a in detect_kernel.corner_peaks_and_blur(t(img)))
+        jnp.asarray(img), border=border, interpret=True))
+    pt, bt = (n(a) for a in detect_kernel.corner_peaks_and_blur(t(img), border=border))
     np.testing.assert_array_equal(np.isfinite(pt), np.isfinite(pj))
     fin = np.isfinite(pj)
-    assert fin.sum() > 10
+    if min(img.shape) <= 2 * border:
+        assert not fin.any()
+    else:
+        assert fin.sum() > 10
     np.testing.assert_allclose(pt[fin], pj[fin], rtol=PEAK_RTOL, atol=0)
     np.testing.assert_allclose(bt, bj, rtol=0, atol=BLUR_ATOL)
 

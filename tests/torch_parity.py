@@ -30,6 +30,17 @@ def smooth_noise(h=480, w=640, sigma=3.0, seed=0):
     return ndi.gaussian_filter(base, sigma).astype(np.float32)
 
 
+# Kernel B1's ragged sizes: no side a multiple of its 60x20 tile, a quarter
+# frame, images narrower or shorter than a tile, and one no larger than the
+# 16 px border frame (every peak -inf).
+RAGGED_SIZES = [(479, 637), (240, 320), (45, 70), (37, 600), (30, 30)]
+
+
+def uniform_noise(h, w, seed=0):
+    """Uniform noise in [0, 1), float32, from a NumPy seed."""
+    return np.random.default_rng(seed).uniform(0, 1, (h, w)).astype(np.float32)
+
+
 def t(a, dtype=None):
     """NumPy (or JAX) array -> CPU tensor."""
     out = torch.from_numpy(np.array(a))

@@ -99,7 +99,9 @@ def corner_peaks_and_blur_torch(img, nms_radius=3, border=16, blur_radius=BLUR_R
 
 
 def _launch(img: torch.Tensor, nms_radius: int, border: int, with_blur: bool,
-            blur_radius: int, blur_sigma: float):
+            blur_radius: int, blur_sigma: float, lib=None):
+    """One launch of the CUDA kernel; `lib` another build of it (the default:
+    this checkout's library)."""
     if img.device.type != "cuda":
         raise ValueError(f"detect kernel: tensor on {img.device}, not CUDA")
     if img.dtype != torch.float32 or img.dim() != 2 or not img.is_contiguous():
@@ -110,7 +112,7 @@ def _launch(img: torch.Tensor, nms_radius: int, border: int, with_blur: bool,
             f"blur_radius={BLUR_RADIUS}"
         )
     H, W = img.shape
-    lib = build.library()
+    lib = lib or build.library()
     peaks = torch.empty_like(img)
     blur = torch.empty_like(img) if with_blur else None
     g = [float(w) for w in blur_weights(blur_radius, blur_sigma)]
@@ -145,3 +147,17 @@ def corner_peaks(img: torch.Tensor, nms_radius: int = 3, border: int = 16):
     peaks, _ = _launch(img, nms_radius, border, False, BLUR_RADIUS, 2.0)
     launches_no_blur += 1
     return peaks
+
+
+def sqrt_check(device) -> tuple[int, int]:
+    """Kernel B1's branch-free square root against CUDA's IEEE one
+    (__fsqrt_rn) on every float from +0 to +inf, on the card: (the number
+    of inputs where they differ, the smallest such input's bit pattern, or
+    0xffffffff where there is none)."""
+    count = torch.zeros(1, dtype=torch.int64, device=device)
+    first = torch.full((1,), -1, dtype=torch.int32, device=device)
+    dev = count.device
+    err = build.library().vslam_detect_sqrt_check(
+        count.data_ptr(), first.data_ptr(), torch.cuda.current_stream(dev).cuda_stream, dev.index)
+    build.check(err, "vslam_detect_sqrt_check")
+    return int(count.item()), int(first.item()) & 0xFFFFFFFF
