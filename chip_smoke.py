@@ -18,7 +18,8 @@ Phases, each raising on failure:
                keyframes, applied BAs, every kernel's launch count, times;
                B4/B5 vs their plain versions at that BA's shapes, B4 ten
                times on normal rows (the same bits each call, no farther
-               from float64 sums than index_add_), B4's plan
+               from float64 sums than index_add_), B4's plan, B5 beside the
+               launch floor
   7. ransac    one frame tracked from a prior ~0.3 m / 10 deg off
   8. timing    each kernel beside its plain version at the path's shapes,
                and its bound; B1/B2 also by queued events, beside a copy
@@ -38,8 +39,9 @@ Phases, each raising on failure:
  13. online BA ba.optimize, solver "chol" and "cg", on a 16-camera,
                2048-point arc built by make_problem
  14. B4/B5 timing  each beside its plain version, one PyTorch call for
-               the same function, and its bound at config-#5 shapes; B4
-               also with more cameras than slots
+               the same function, and its bound at config-#5 shapes; B5
+               also over config #5's own camera ids, B4 also with more
+               cameras than slots
  15. monocular the SLAM loop on every 2nd frame, 90 frames at 640x480:
                two-view init (512 essential hypotheses), triangulated
                mining, BA; init frame, keyframes, applied BAs, failures,
@@ -427,6 +429,7 @@ def seg_phases(dev, smi) -> dict:
         f"device busy share {dev_ms / (1e3 * wall):.3f}")
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:10]:
         log(f"[LM trace]   {us / 1e3:9.4f} ms {count:5d}x  {key[:90]}")
+    path_cam = prob.cam  # the path's camera ids, timed in phase 14
     del prob, gt, prof
 
     # 13. the online solver on a 16-camera arc
@@ -452,12 +455,18 @@ def seg_phases(dev, smi) -> dict:
     #     times: on an H100, a profiler window was seen to keep ~1 of 20 B4
     #     launches and read 0.0071 ms (14 TB/s). The profiler's sum is
     #     printed beside them. B4 runs over a plan built once, as in an
-    #     optimize call.
+    #     optimize call. B5 also over config #5's own camera ids.
     seg_times = {}
-    for name, C, N, K in [("B4", 27, N5, K5), ("B4", 6, N5, K5), ("B5", 12, N5, K5), ("B5", 6, N5, K5),
-                          ("B4", 3, 50000, 100000)]:
+    for name, C, N, K, ids in [("B4", 27, N5, K5, "uniform"), ("B4", 6, N5, K5, "uniform"),
+                               ("B5", 12, N5, K5, "uniform"), ("B5", 6, N5, K5, "uniform"),
+                               ("B5", 12, N5, K5, "path"), ("B5", 6, N5, K5, "path"),
+                               ("B4", 3, 50000, 100000, "uniform")]:
         data, cam, x = seg_inputs(C, N, K, rng)
         d, c, xt = (torch.from_numpy(a).to(dev) for a in (data, cam, x))
+        if ids == "path":
+            c = path_cam
+            if not torch.equal(seg_kernel.cam_expand(xt, c), seg_kernel.cam_expand_torch(xt, c)):
+                raise AssertionError(f"B5 ({C},{K})->({C},{N}) on config #5's ids: not bit-equal")
         if name == "B4":
             plan = seg_kernel.reduce_plan(c, K)
             kernel_fn, plain_fn, library_fn = (lambda: seg_kernel.cam_reduce(d, c, K, plan),
@@ -474,14 +483,15 @@ def seg_phases(dev, smi) -> dict:
         lms = queued_ms(library_fn, iters=20)
         kprof, pprof = device_ms(kernel_fn, iters=20)[0], device_ms(plain_fn, iters=20)[0]
         mb = 4 * C * N / 1e6
-        seg_times[(name, C, N, K)] = (kms, pms, lms, bound)
-        log(f"[timing] {name} C={C} N={N} K={K}: kernel {kms:.4f} ms, plain {pms:.4f} ms, "
+        seg_times[(name, C, N, K, ids)] = (kms, pms, lms, bound)
+        log(f"[timing] {name} C={C} N={N} K={K} ({ids} ids): kernel {kms:.4f} ms, plain {pms:.4f} ms, "
             f"library {lms:.4f} ms device (queued events; profiler sums {kprof:.4f} / {pprof:.4f} ms); "
             f"{mb:.0f} MB of rows: kernel at {mb / kms / 1e3:.3f} TB/s; bound {bound[0]:.4f} ms "
             f"({bound[1]}): kernel at {bound[0] / kms:.3f} of its bound"
             + (f"; {plan.tile}-slot tiles, {int(plan.tile_ptr[-1])} runs" if name == "B4" else "")
             + f"; {smi}")
         del d, c, xt
+    del path_cam
     return seg_times
 
 
@@ -752,9 +762,15 @@ def main() -> int:
         f"({path_bounds['B4'][1]}); plan ({plan6.tile}-slot tiles, {int(plan6.tile_ptr[-1])} of at "
         f"most {plan6.max_runs} runs): built in {plan6_ms:.4f} ms, {plan6.nbytes() / 1e6:.4f} MB, "
         f"+ {42 * plan6.max_runs * 4 / 1e6:.4f} MB of partials per call; {smi}")
+    # The launch floor beside B5: one launch of a one-element zero_(), timed the same way.
+    z = torch.zeros(1, device=dev)
+    floor_ms = queued_ms(lambda: z.zero_())
+    g6 = seg_kernel.expand_geometry(12, N6, *seg_kernel._card(0), prob.cam.data_ptr() % 16 == 0)
     log(f"[RGB-D BA] B5 (12,{K6})->(12,{N6}): bit-equal, kernel {path_times['B5'][0]:.4f} ms vs "
         f"plain {path_times['B5'][1]:.4f} ms vs index_select {path_times['B5'][2]:.4f} ms, bound "
-        f"{path_bounds['B5'][0]:.5f} ms (queued events); {smi}")
+        f"{path_bounds['B5'][0]:.5f} ms, launch floor (one-element zero_()) {floor_ms:.4f} ms "
+        f"(queued events); {g6.chunks} chunks of {g6.ck} channels, "
+        f"{g6.grid_x * g6.chunks} blocks of {g6.threads}; {smi}")
     del rows, normal, table, rk, rp, ek, ep
 
     # 7. the RANSAC branch: a prior ~0.3 m and 10 deg off the truth
@@ -879,9 +895,9 @@ def main() -> int:
              bound_ms=path_bounds["B5"][0], bound_by=path_bounds["B5"][1],
              library_ms=path_times["B5"][2]),
     ]
-    for (name, C, N, K), (kms, pms, lms, (b, by)) in seg_times.items():
-        log(f"[kernels] {name} at C={C}, N={N}, K={K}: {kms:.4f} ms, plain {pms:.4f} ms, library "
-            f"{lms:.4f} ms, bound {b:.4f} ms ({by}): {b / kms:.3f} of the bound")
+    for (name, C, N, K, ids), (kms, pms, lms, (b, by)) in seg_times.items():
+        log(f"[kernels] {name} at C={C}, N={N}, K={K} ({ids} ids): {kms:.4f} ms, plain {pms:.4f} ms, "
+            f"library {lms:.4f} ms, bound {b:.4f} ms ({by}): {b / kms:.3f} of the bound")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from test_ba import _synth_with_depth, synth_problem
-from torch_parity import ICL_INTR, cam_reduce_walk, n, t
+from torch_parity import ICL_INTR, cam_reduce_walk, check_or_recompute, n, t
 
 from visual_slam_tpu.models import ba as jba
 from visual_slam_tpu.models import ba_large as jbl
@@ -38,11 +38,16 @@ R_ATOL = 1e-5
 LAMBDA = 1e-3
 
 
-def _close(got, want, rtol=PIECE_RTOL, atol=None):
-    want = np.asarray(want)
+def _close(got, want, rtol=PIECE_RTOL, atol=None, name=""):
+    """assert_allclose, naming the array, its worst index and both values."""
+    got, want = n(got), np.asarray(want)
     if atol is None:
         atol = PIECE_ATOL_SCALE * float(np.abs(want).max())
-    np.testing.assert_allclose(n(got), want, rtol=rtol, atol=atol)
+    g64, w64 = got.astype(np.float64), want.astype(np.float64)
+    excess = np.abs(g64 - w64) - (atol + rtol * np.abs(w64))
+    i = np.unravel_index(np.argmax(np.where(np.isnan(excess), np.inf, excess)), want.shape)
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol, err_msg=(
+        f"{name}: worst at {tuple(map(int, i))}: port {got[i]!r}, JAX {want[i]!r}, atol {atol!r}"))
 
 
 def _with_scale_edges(jp, R_gt, t_gt):
@@ -77,19 +82,22 @@ def edged():
 def test_ba_large_pieces_match_jax(edged, piece):
     jp, tp = edged
     if piece == "project":
-        for g, w in zip(ba_large._project(tp), jbl._project(jp, False)):
-            _close(g, w)
+        def check(port, jx):
+            for name, g, w in zip(("r", "Xc", "Rn", "iz", "w_irls"), port, jx):
+                _close(g, w, name=name)
+
+        check_or_recompute(check, lambda: ba_large._project(tp), lambda: jbl._project(jp, False))
     elif piece == "jacobians":
         _, Xc, Rn, iz, _ = jbl._project(jp, False)
         got = ba_large._jacobians(t(Xc), t(Rn), t(iz), tp.intr)
-        for g, w in zip(got, jbl._jacobians(Xc, Rn, iz, jp.intr)):
-            _close(g, w)
+        for name, g, w in zip(("Jc", "Jp"), got, jbl._jacobians(Xc, Rn, iz, jp.intr)):
+            _close(g, w, name=name)
     elif piece == "build":
         got = ba_large._build(tp, torch.tensor(LAMBDA), None)
         want = jbl._build(jp, LAMBDA)
         assert float(np.abs(np.asarray(want[5])).max()) > 1.0  # H_ij is live
-        for g, w in zip(got, want):
-            _close(g, w)
+        for i, (g, w) in enumerate(zip(got, want)):
+            _close(g, w, name=f"build[{i}]")
     elif piece == "schur_matvec":
         U, V_inv, _, _, WO, H = jbl._build(jp, LAMBDA)
         x = np.random.default_rng(5).normal(size=(6, 6)).astype(np.float32)

@@ -15,7 +15,7 @@ from visual_slam_tpu_torch import convert
 from visual_slam_tpu_torch.config import SlamConfig
 from visual_slam_tpu_torch.models import frontend
 from visual_slam_tpu_torch.models import ba, ba_large
-from visual_slam_tpu_torch.ops.kernels import detect_kernel, patch_kernel, seg_kernel
+from visual_slam_tpu_torch.ops.kernels import build, detect_kernel, patch_kernel, seg_kernel
 from visual_slam_tpu_torch.pipeline import Slam, run_sequence
 from visual_slam_tpu_torch.utils import synthetic
 from visual_slam_tpu_torch.utils.evaluate import ate_rmse
@@ -261,6 +261,71 @@ def test_seg_kernels_match_plain(cuda, C, N, K, case):
     assert all(torch.equal(seg_kernel.cam_reduce(d, c, K, plan), red) for _ in range(10))
     assert torch.equal(seg_kernel.cam_reduce(dd, c, K, plan), seg_kernel.cam_reduce_torch(dd, c, K))
     assert torch.equal(exp, seg_kernel.cam_expand_torch(x, c))
+
+
+@pytest.mark.parametrize("C,N,K,case,chunks", [
+    (12, 1 << 22, 5000, "uniform", 1),  # config #5's projection
+    (6, 1 << 22, 5000, "uniform", 1),  # its matvec
+    (12, 16384, 64, "kfba", 6),  # the keyframe BA: padding slots on camera 0, 6 chunks of 2
+    (5, 100003, 257, "ragged", 1),  # N % 4 != 0; ids >= K and < 0
+    (7, 4098, 300, "ragged", 7),  # N % 4 == 2
+    (4, 3, 9, "ragged", 4),  # N < 4
+    (1, 1000, 1, "uniform", 1),  # C = 1, K = 1
+    (3, 50000, 100000, "ragged", 2),  # a 1.2 MB table, past L1
+])
+def test_expand_matches_plain(cuda, C, N, K, case, chunks):
+    """B5 bit for bit against its plain version, one launch a call, in the
+    geometry expand_geometry picks and in others at the same shape: one
+    channel a chunk, all channels in one, 512-thread blocks, an odd grid of
+    96-thread blocks, scalar ids and stores, the other store hint. The
+    table holds -0.0, inf, NaN and subnormals, compared as bits; ids from an
+    offset the 16-byte path cannot take go the scalar way."""
+    rng = np.random.default_rng(C + N + K)
+    cam = rng.integers(0, K, N + 1).astype(np.int32)
+    if case == "ragged":
+        cam[::7], cam[::11], cam[::13] = K + 3, -1, K
+    if case == "kfba":  # make_problem's layout: Q=8 slots a landmark, 7 of them padding
+        cam[:N].reshape(-1, 8)[:, 1:] = 0
+    x = rng.normal(size=(C, K)).astype(np.float32)
+    x.ravel()[:4] = [-0.0, np.inf, np.nan, 1e-40][:x.size]
+    xt, ct = torch.from_numpy(x).to(cuda), torch.from_numpy(cam).to(cuda)
+    c = ct[:N]
+    sms, l2 = seg_kernel._card(cuda.index or 0)
+    g = seg_kernel.expand_geometry(C, N, sms, l2, c.data_ptr() % 16 == 0)
+    assert g.chunks == chunks and g.vec4 == (N % 4 == 0)
+    want = seg_kernel.cam_expand_torch(xt, c).view(torch.int32)
+    n0 = seg_kernel.expand_launches
+    got = seg_kernel.cam_expand(xt, c)
+    torch.cuda.synchronize()
+    assert seg_kernel.expand_launches == n0 + 1
+    assert torch.equal(got.view(torch.int32), want)
+    variants = [g._replace(ck=1, chunks=C), g._replace(ck=C, chunks=1),
+                g._replace(threads=512, grid_x=2 * sms), g._replace(threads=96, grid_x=7),
+                g._replace(vec4=False), g._replace(evict_first=not g.evict_first)]
+    lib = build.library()
+    for v in variants:
+        assert torch.equal(seg_kernel._launch_expand(lib, xt, c, v).view(torch.int32), want), v
+    if N > 1:  # ids one int past a 16-byte boundary
+        assert torch.equal(seg_kernel.cam_expand(xt, ct[1:N + 1]).view(torch.int32),
+                           seg_kernel.cam_expand_torch(xt, ct[1:N + 1]).view(torch.int32))
+    assert seg_kernel.expand_launches == n0 + 1 + (N > 1)
+
+
+def test_expand_refuses_a_geometry_it_cannot_take(cuda):
+    """A geometry the kernel does not take is refused at launch, and the
+    launch raises: no channels a chunk, no blocks, an odd or oversized
+    block, 16-byte ids at an unaligned offset."""
+    cam = torch.zeros(4097, dtype=torch.int32, device=cuda)
+    x = torch.zeros((3, 100), device=cuda)
+    sms, l2 = seg_kernel._card(cuda.index or 0)
+    g = seg_kernel.expand_geometry(3, 4096, sms, l2)
+    lib = build.library()
+    for bad in (g._replace(ck=0), g._replace(grid_x=0), g._replace(threads=48),
+                g._replace(threads=2048)):
+        with pytest.raises(RuntimeError):
+            seg_kernel._launch_expand(lib, x, cam[:4096], bad)
+    with pytest.raises(RuntimeError):
+        seg_kernel._launch_expand(lib, x, cam[1:], g)
 
 
 def test_seg_wrappers_raise_instead_of_falling_back(cuda):

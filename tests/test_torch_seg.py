@@ -224,6 +224,57 @@ def test_walk_error_within_float32_bound(case):
         assert err.max() <= seq.max()
 
 
+# ---------------------------------------------------------------------------
+# B5's launch geometry (seg_kernel.expand_geometry), chosen on the host from
+# the shapes: checked here for an H100 (132 SMs, 50 MB of L2).
+
+H100_SMS, H100_L2 = 132, 50 * 1024 * 1024
+EXPAND_SHAPES = {  # (C, N), the number of channel chunks
+    "config5_c12": ((12, 1 << 22), 1),  # the projection's expand
+    "config5_c6": ((6, 1 << 22), 1),  # the matvec's
+    "kfba": ((12, 16384), 6),  # the keyframe BA's: N too short for one chunk
+    "ragged": ((5, 100003), 1),
+    "short": ((4, 3), 4),
+    "single": ((1, 1), 1),
+    "wide": ((3, 50000), 2),  # the card test's K = 100,000 shape
+}
+
+
+def _expand_slots(q, vec4):
+    """The 4 slots of B5's groups q (csrc/seg.cu `slot_of`), a trailing axis."""
+    q, j = np.asarray(q)[..., None], np.arange(4)
+    return 4 * q + j if vec4 else q // 32 * 128 + q % 32 + 32 * j
+
+
+@pytest.mark.parametrize("case", sorted(EXPAND_SHAPES))
+def test_expand_geometry_covers_every_output(case):
+    """The chunks cover every channel once, the blocks every 4-slot group
+    once and the groups every slot once, on the 16-byte and the 4-byte
+    path; one 1024-thread block an SM where N is long, at least one block
+    an SM where it is short; 16-byte paths only where N % 4 == 0 and the ids
+    are aligned; evict-first stores only past L2."""
+    (C, N), chunks = EXPAND_SHAPES[case]
+    g = seg_kernel.expand_geometry(C, N, H100_SMS, H100_L2)
+    assert g.chunks == chunks == -(-C // g.ck)
+    chans = [c for y in range(g.chunks) for c in range(y * g.ck, min(C, (y + 1) * g.ck))]
+    assert chans == list(range(C)) and (g.chunks - 1) * g.ck < C
+    for vec4 in {g.vec4, False}:  # the geometry's path, and the 4-byte one at every shape
+        groups = seg_kernel.expand_groups(N, vec4)
+        stride = g.grid_x * g.threads
+        walked = (np.arange(stride)[:, None] + stride * np.arange(-(-groups // stride))[None]).ravel()
+        walked = np.sort(walked[walked < groups])
+        np.testing.assert_array_equal(walked, np.arange(groups))
+        slots = _expand_slots(walked, vec4).ravel()
+        np.testing.assert_array_equal(np.sort(slots[slots < N]), np.arange(N))
+    assert g.threads % 32 == 0 and g.threads <= seg_kernel.EXPAND_THREADS
+    assert g.vec4 == (N % 4 == 0) and g.evict_first == (4 * C * N > H100_L2)
+    assert not seg_kernel.expand_geometry(C, N, H100_SMS, H100_L2, vec4=False).vec4
+    if case.startswith("config5"):  # one 1024-thread block an SM, all resident at once
+        assert (g.threads, g.grid_x) == (seg_kernel.EXPAND_THREADS, H100_SMS)
+    if case in ("kfba", "wide"):  # at least one block an SM
+        assert g.grid_x * g.chunks >= H100_SMS
+
+
 def test_reduce_plan_default_tiles_and_bound():
     """Tiles of 1024 to 16384 slots; the run bound needs no device read."""
     assert seg_kernel.default_tile(16384) == 1024

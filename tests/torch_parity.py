@@ -9,9 +9,11 @@ import torch
 from visual_slam_tpu_torch.ops.kernels import seg_kernel
 from visual_slam_tpu_torch.ops.kernels.seg_kernel import TILE_GROUPS, WARP_RUN
 
-# The tier-1 run uses 6 pytest workers on a shared machine: keep each
-# worker's intra-op pool small.
-torch.set_num_threads(2)
+# One intra-op thread a pytest worker. torch's CPU sqrt runs MKL's vector
+# math in 2,048-element chunks over the intra-op threads; with two threads,
+# in a fresh worker under load, the second thread's chunk of the first
+# call has come back ~2e-4 off (ROADMAP, Queue C).
+torch.set_num_threads(1)
 
 ICL_INTR = np.array([481.20, 480.0, 319.5, 239.5], np.float32)
 
@@ -50,6 +52,29 @@ def t(a, dtype=None):
 def n(x):
     """Tensor -> NumPy."""
     return x.detach().cpu().numpy()
+
+
+def check_or_recompute(check, port_fn, jax_fn) -> None:
+    """check(port, jax) on one computation of each side (tuples of arrays or
+    tensors). If it fails, both sides are computed again and the message
+    says, for each output of each side, how many entries the second
+    computation changed and by how much, so a one-off mismatch (ROADMAP
+    Queue C) names the side and the output that changed."""
+    port, jx = port_fn(), jax_fn()
+    try:
+        check(port, jx)
+    except AssertionError as e:
+        def changes(first, again):
+            out = []
+            for i, (a, b) in enumerate(zip(first, again)):
+                a, b = np.asarray(a), np.asarray(b)
+                moved = (a != b) & ~(np.isnan(a) & np.isnan(b)) if a.dtype.kind == "f" else a != b
+                big = np.abs(a.astype(np.float64) - b)[moved].max() if moved.any() else 0.0
+                out.append(f"[{i}] {int(moved.sum())} of {a.size} changed, max {big:.3g}")
+            return "; ".join(out)
+
+        raise AssertionError(f"{e}\ncomputed again: port {changes(port, port_fn())}; "
+                             f"JAX {changes(jx, jax_fn())}") from e
 
 
 def desc_bits(desc_u32: np.ndarray) -> np.ndarray:

@@ -17,10 +17,23 @@
 // bytes (201 MB at C = 12, ~60 us at 3.35 TB/s) and the reduce reads C*N*4
 // bytes plus the (N,) camera ids (453 MB + 17 MB at C = 27, ~140 us).
 //
-// B5: one thread per slot reads cam[n] once and writes its C outputs; each
-// row's writes are coalesced along n. The (C,K) table (<= 540 KB) stays in
-// L2. Every output is a copy, so the result is bit-equal to the plain
-// version.
+// B5: bound by device-memory bytes, the C*N*4 it writes and the N*4 ids it
+// reads; at config #5 it moves them at ~2.3 TB/s, near what a mix of
+// reads and writes reaches on an H100 (a write-only fill_ of the output
+// ~3.2 TB/s). What the design does about it: a thread takes 4 slots, with
+// one 16-byte load of their ids (the next 4 loaded before the current ones
+// are used) and one 16-byte store a channel; where N % 4 != 0 or the ids
+// are unaligned, 4-byte ones, each coalesced across the warp. The stores
+// are evict-first where the output is larger than L2, so the ids and the
+// table stay there. The values are gathered from the channel-major (C,K)
+// table through L1/L2, which holds it (240 KB at config #5): a table staged
+// camera-major in shared memory was measured within 5% of this gather
+// either way (PERF.md) and was dropped. One persistent 1024-thread block an
+// SM walks the slots; where N is short the blocks shrink to 128 threads,
+// then the channels are cut into chunks (blockIdx.y), until every SM has a
+// block. ops/kernels/seg_kernel.expand_geometry picks the chunks, the grid
+// and the vector path from the shapes. Every output is a copy, so the
+// result is bit-equal to the plain version.
 //
 // B4: a deterministic segmented sum over a per-problem reduce plan, with no
 // atomics. The camera ids of a BA problem do not change across its LM and CG
@@ -63,7 +76,7 @@
 
 namespace {
 
-constexpr int THREADS = 512;          // B5
+constexpr int EXPAND_THREADS = 1024;  // B5: the most threads a block
 constexpr int TILE_THREADS = 1024;    // B4 pass 1
 constexpr int TILE_GROUPS = 4;        // B4 pass 2: warps of a block, one share of the tiles each
 constexpr int TILE_BATCH = 8;         // B4 pass 2: tiles whose loads are in flight together
@@ -74,19 +87,87 @@ __device__ __forceinline__ bool in_range(int k, int K) {
   return static_cast<unsigned>(k) < static_cast<unsigned>(K);
 }
 
-__global__ void __launch_bounds__(THREADS)
-cam_expand_kernel(const float* __restrict__ x, const int* __restrict__ cam,
-                  float* __restrict__ out, int C, long long N, int K) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long n = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       n < N; n += stride) {
-    const int k = cam[n];
-    const bool ok = in_range(k, K);
-    const int kk = ok ? k : 0;  // always a valid address; the value is masked
-    for (int c = 0; c < C; ++c) {
-      const float v = x[static_cast<size_t>(c) * K + kk];
-      out[static_cast<size_t>(c) * N + n] = ok ? v : 0.f;
+// Slot j (0..3) of thread group q. vec4: 4q + j, so a thread's 4 slots take
+// one 16-byte id load and one 16-byte store a channel. Scalar: 128 w + l +
+// 32 j for q = 32 w + l, so each of a warp's 4-byte loads and stores covers
+// 32 consecutive slots.
+__device__ __forceinline__ long long slot_of(long long q, int j, bool vec4) {
+  return vec4 ? 4 * q + j : (q / 32) * 128 + q % 32 + 32 * j;
+}
+
+// Group q's values into row p, cut at N; evict-first where the output does
+// not fit in L2.
+__device__ __forceinline__ void store_slots(float* p, long long q, long long N, float4 v,
+                                            bool vec4, bool evict_first) {
+  if (vec4) {
+    if (evict_first) {
+      __stcs(reinterpret_cast<float4*>(p) + q, v);
+    } else {
+      reinterpret_cast<float4*>(p)[q] = v;
     }
+    return;
+  }
+  const float s[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const long long n = slot_of(q, j, false);
+    if (n < N) {
+      if (evict_first) {
+        __stcs(p + n, s[j]);
+      } else {
+        p[n] = s[j];
+      }
+    }
+  }
+}
+
+// The camera ids of group q's slots (K past N, which the caller never stores).
+__device__ __forceinline__ int4 load_ids(const int* __restrict__ cam, long long q, long long N,
+                                         int K, bool vec4) {
+  if (vec4) return __ldg(reinterpret_cast<const int4*>(cam) + q);
+  int k[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const long long n = slot_of(q, j, false);
+    k[j] = n < N ? __ldg(cam + n) : K;
+  }
+  return make_int4(k[0], k[1], k[2], k[3]);
+}
+
+// Block (b, y): channels [y ck, y ck + nc) of every group q = b * blockDim.x +
+// threadIdx.x + i * gridDim.x * blockDim.x below `groups` (N / 4 with vec4,
+// else 32 per 128 slots), gathered from x through L1/L2; 0 for an id
+// outside [0,K).
+__global__ void __launch_bounds__(EXPAND_THREADS)
+cam_expand_kernel(const float* __restrict__ x, const int* __restrict__ cam,
+                  float* __restrict__ out, int C, long long N, int K, int ck, bool vec4,
+                  bool evict_first) {
+  const int c0 = blockIdx.y * ck, nc = min(ck, C - c0);
+  const long long groups = vec4 ? N / 4 : (N + 127) / 128 * 32;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  long long q = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  int4 ids = q < groups ? load_ids(cam, q, N, K, vec4) : make_int4(K, K, K, K);
+  for (; q < groups; q += stride) {
+    const int4 next = q + stride < groups ? load_ids(cam, q + stride, N, K, vec4) : ids;
+    int k[4] = {ids.x, ids.y, ids.z, ids.w};
+    bool ok[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      ok[j] = in_range(k[j], K);
+      k[j] = ok[j] ? k[j] : 0;  // always a valid address; the value is masked below
+    }
+    float* row = out + static_cast<size_t>(c0) * N;
+    for (int c = 0; c < nc; ++c) {
+      const float* xc = x + static_cast<size_t>(c0 + c) * K;
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = __ldg(xc + k[j]);
+      store_slots(row + static_cast<size_t>(c) * N, q, N,
+                  make_float4(ok[0] ? v[0] : 0.f, ok[1] ? v[1] : 0.f, ok[2] ? v[2] : 0.f,
+                              ok[3] ? v[3] : 0.f),
+                  vec4, evict_first);
+    }
+    ids = next;
   }
 }
 
@@ -228,22 +309,28 @@ cam_reduce_camera_kernel(const float* __restrict__ partial, const int2* __restri
   }
 }
 
-int blocks_for(long long N) {
-  const long long b = (N + THREADS - 1) / THREADS;
-  return static_cast<int>(b < (1LL << 30) ? b : (1LL << 30));
-}
-
 }  // namespace
 
 // x (C,K) float32, cam (N,) int32, out (C,N) float32, all contiguous on
-// `device`; launch on `stream`. Returns cudaGetLastError().
-extern "C" int vslam_cam_expand(const float* x, const int* cam, float* out, int C,
-                                long long N, int K, void* stream, int device) {
+// `device`; launch on `stream`. The geometry comes from
+// seg_kernel.expand_geometry: ck channels a chunk (one chunk per
+// blockIdx.y), grid_x blocks of `threads` per chunk, vec4 (16-byte ids and
+// stores) and evict_first (streaming stores). Returns cudaGetLastError(),
+// or cudaErrorInvalidValue for a geometry the kernel does not take.
+extern "C" int vslam_cam_expand(const float* x, const int* cam, float* out, int C, long long N,
+                                int K, int ck, int grid_x, int threads, int vec4,
+                                int evict_first, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (N > 0 && C > 0)
-    cam_expand_kernel<<<blocks_for(N), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        x, cam, out, C, N, K);
+  if (N <= 0 || C <= 0) return static_cast<int>(cudaGetLastError());
+  const int chunks = ck > 0 ? (C + ck - 1) / ck : 0;
+  if (ck <= 0 || chunks > 65535 || grid_x <= 0 || threads <= 0 || threads > EXPAND_THREADS ||
+      threads % 32 ||
+      (vec4 && (N % 4 || reinterpret_cast<uintptr_t>(cam) % 16 ||
+                reinterpret_cast<uintptr_t>(out) % 16)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cam_expand_kernel<<<dim3(grid_x, chunks), threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, cam, out, C, N, K, ck, vec4, evict_first);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -45,8 +45,9 @@ _SIGNATURES = {
     # data, order, run_start, tile_ptr, words, partial, out, C, N, K, tile,
     # max_runs, stream, device
     "vslam_cam_reduce": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _L, _P, _I],
-    # x, cam, out, C, N, K, stream, device
-    "vslam_cam_expand": [_P, _P, _P, _I, _L, _I, _P, _I],
+    # x, cam, out, C, N, K, ck, grid_x, threads, vec4, evict_first, stream,
+    # device (seg_kernel.ExpandGeometry)
+    "vslam_cam_expand": [_P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _I, _P, _I],
 }
 
 build_seconds: float | None = None  # wall time of the last cold build

@@ -30,6 +30,7 @@ plan per call and pass it to every `cam_reduce`.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -43,6 +44,8 @@ _MAX_K = 1 << 28  # keeps K * sizeof(float) inside the C side's int
 WARP_RUN = 32  # B4 sums a longer run of one camera in a tile with a warp
 TILE_GROUPS = 4  # B4's second pass splits the tiles into this many shares, in order
 MIN_TILE, MAX_TILE = 1024, 16384  # MAX_TILE: an int16 offset; 3 rows fill shared memory
+
+EXPAND_THREADS, EXPAND_MIN_THREADS = 1024, 128  # B5's block sizes, long and short N
 
 
 class ReducePlan(NamedTuple):
@@ -133,6 +136,55 @@ def reduce_plan(cam: torch.Tensor, K: int, tile: int | None = None) -> ReducePla
     return ReducePlan(K, N, T, order, run_start.to(i32), tile_ptr.to(i32), words.to(i32))
 
 
+class ExpandGeometry(NamedTuple):
+    """How kernel B5 covers a (C,K) -> (C,N) expand (csrc/seg.cu). Thread t
+    of block (b, y) takes channels [y * ck, y * ck + ck) of the 4-slot
+    groups q = b * threads + t + i * grid_x * threads, i = 0, 1, ..., below
+    expand_groups(N, vec4). Group q's slots: 4q..4q+3 with 16-byte accesses,
+    else 128 w + l + 32 j (j < 4) for q = 32 w + l, so a warp's 4-byte
+    accesses are coalesced."""
+
+    ck: int  # channels a chunk
+    chunks: int  # grid y, ceil(C / ck)
+    grid_x: int  # blocks a chunk, each walking the groups with a grid stride
+    threads: int
+    vec4: bool  # 16-byte ids and stores; else 4-byte ones, coalesced across a warp
+    evict_first: bool  # streaming stores: the output is larger than L2
+
+
+def expand_groups(N: int, vec4: bool) -> int:
+    """B5's 4-slot groups: N / 4 with 16-byte accesses, else 32 a 128 slots."""
+    return N // 4 if vec4 else -(-N // 128) * 32
+
+
+@functools.lru_cache(maxsize=256)
+def expand_geometry(C: int, N: int, sms: int, l2_bytes: int, vec4: bool = True) -> ExpandGeometry:
+    """B5's launch for C channels and N slots on a card with `sms` SMs and
+    `l2_bytes` of L2; `vec4`: the ids are 16-byte aligned. One block of
+    EXPAND_THREADS an SM walks the groups, all channels at once; where N is
+    too short for a block an SM, smaller blocks, then chunks of fewer
+    channels, down to one. Cached: a BA problem's shapes are fixed over its
+    calls."""
+    vec4 = vec4 and N % 4 == 0
+    groups = expand_groups(N, vec4)
+    threads, ck, chunks = EXPAND_THREADS, C, 1
+    while -(-groups // threads) * chunks < sms and threads > EXPAND_MIN_THREADS:
+        threads //= 2
+    while -(-groups // threads) * chunks < sms and ck > 1:
+        chunks = -(-C // (ck - 1))
+        ck = -(-C // chunks)
+    resident = EXPAND_THREADS // threads  # 64 registers a thread: 1024 threads an SM
+    grid_x = max(1, min(resident * sms // chunks, -(-groups // threads)))
+    return ExpandGeometry(ck, chunks, grid_x, threads, vec4, 4 * C * N > l2_bytes)
+
+
+@functools.cache
+def _card(index: int) -> tuple[int, int]:
+    """(SMs, L2 bytes) of CUDA card `index`."""
+    prop = torch.cuda.get_device_properties(index)
+    return prop.multi_processor_count, prop.L2_cache_size
+
+
 def _slot_index(cam: torch.Tensor, K: int) -> torch.Tensor:
     """Camera ids with every out-of-range id sent to the extra column K."""
     return torch.where((cam >= 0) & (cam < K), cam, K).to(torch.int64)
@@ -194,6 +246,21 @@ def cam_reduce(data: torch.Tensor, cam: torch.Tensor, K: int,
     return out
 
 
+def _launch_expand(lib, x: torch.Tensor, cam: torch.Tensor, g: ExpandGeometry) -> torch.Tensor:
+    """One launch of B5 from `lib` (a build of csrc/seg.cu) over geometry
+    `g`, on tensors `_check` has passed; raises on a CUDA error. Counts
+    nothing: `cam_expand` does."""
+    C, K = x.shape
+    N = cam.shape[0]
+    out = torch.empty((C, N), dtype=torch.float32, device=x.device)
+    err = lib.vslam_cam_expand(
+        x.data_ptr(), cam.data_ptr(), out.data_ptr(), C, N, K, g.ck, g.grid_x, g.threads,
+        g.vec4, g.evict_first, torch.cuda.current_stream(x.device).cuda_stream, x.device.index,
+    )
+    build.check(err, "vslam_cam_expand")
+    return out
+
+
 def cam_expand(x: torch.Tensor, cam: torch.Tensor) -> torch.Tensor:
     """(C,K) float32, (N,) int32 -> (C,N) float32 per-slot copies.
     CPU tensor: the plain version. CUDA tensor: kernel B5, one launch."""
@@ -202,12 +269,7 @@ def cam_expand(x: torch.Tensor, cam: torch.Tensor) -> torch.Tensor:
         return cam_expand_torch(x, cam)
     C, K = x.shape
     _check(x, cam, K, "cam_expand")
-    N = cam.shape[0]
-    out = torch.empty((C, N), dtype=torch.float32, device=x.device)
-    err = build.library().vslam_cam_expand(
-        x.data_ptr(), cam.data_ptr(), out.data_ptr(), C, N, K,
-        torch.cuda.current_stream(x.device).cuda_stream, x.device.index,
-    )
-    build.check(err, "vslam_cam_expand")
+    g = expand_geometry(C, cam.shape[0], *_card(x.device.index), cam.data_ptr() % 16 == 0)
+    out = _launch_expand(build.library(), x, cam, g)
     expand_launches += 1
     return out

@@ -10,10 +10,11 @@ file), runs the RGB-D SLAM loop of chip_smoke.py's phase 6 (60 synthetic
 map's BA problem: `rounds` times, `calls` steps queued back to back and one
 synchronise, ms per step. A step never waits for the card and its device
 work (~21 ms) is a fraction of its host work, so this is the host's time.
-Beside it, the host ms per call of kernel B4 at the step's (42,N) shape
-and, where the checkout has one, of building B4's reduce plan. Prints the
-card's name and power limit, then one JSON line. Run the checkouts in
-turns (a, b, b, a): the host's speed drifts between processes.
+Beside it, the host ms per call of kernel B4 at the step's (42,N) shape,
+of kernel B5 at its (12,K) -> (12,N) one and, where the checkout has one,
+of building B4's reduce plan. Prints the card's name and power limit, then
+one JSON line. Run the checkouts in turns (a, b, b, a): the host's speed
+drifts between processes.
 """
 import argparse
 import json
@@ -85,13 +86,15 @@ def main() -> int:
     else:
         plan_ms = None
         reduce_ms = host_ms(lambda: seg_kernel.cam_reduce(rows, prob.cam, K), 200, sync)
+    table = rows[:12, :K].contiguous()
+    expand_ms = host_ms(lambda: seg_kernel.cam_expand(table, prob.cam), 200, sync)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=False).stdout.strip().splitlines()
     print(smi[0] if smi else "nvidia-smi: no output")
     print(json.dumps({
         "root": args.root, "K": K, "N": N, "lm_iters": cfg.ba.iters,
         "ba_step_host_ms": steps, "ba_step_host_ms_median": statistics.median(steps),
-        "b4_call_host_ms": reduce_ms, "b4_plan_host_ms": plan_ms,
+        "b4_call_host_ms": reduce_ms, "b4_plan_host_ms": plan_ms, "b5_call_host_ms": expand_ms,
     }))
     return 0
 
