@@ -48,12 +48,32 @@ Phases, each raising on failure:
                Sim3 ATE, every kernel's launch count, times
  16. init/mine init_step and mine_step on the card vs the port's CPU path
                on the same features and the same minimal sets
+ 17. pose graph  optimize and optimize_sim3 on the card vs the port's CPU
+               path, SE3 and Sim3, on the 5,000-keyframe graph of the JAX
+               package's tests (the CPU and card tests cover the small
+               graphs): R, t,
+               log-scales within the stated bars, two card calls bit-equal,
+               B4/B5 launches a call (and no indexing kernel), ms a call,
+               device busy share
+ 18. loop scoring  score_keyframes at 64 keyframes x 1024 features, card vs
+               CPU: equal; ms a call
+ 19. close loop  Slam._close_loop on RingScene on the card and the CPU: a
+               genuine closure under 1.15x scale drift accepted (endpoint
+               error halved), a topologically false one rejected with the
+               map bit for bit unchanged; the same decisions and stats
+ 20. RGB-D revisit  run_sequence over 480 frames of the revisiting scene at
+               640x480, K=1024, M=2048, default loop settings: closures by
+               outcome, ATE, failures, keyframes, BAs, launches, the kf_loop
+               timer, frames/s; at least one closure accepted, 0 failures,
+               ATE < 0.02 m; a second card run bit-equal
 
 Prints the kernels' JSON line, then, as the last line,
 {"ok": true, "device": {...}}. Exits non-zero with no result line when
 there is no CUDA card. Imports nothing of JAX.
 """
+import concurrent.futures
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -89,6 +109,13 @@ PRIOR_OFFSET_DEG = 10.0
 # exact.
 REDUCE_RTOL, REDUCE_ATOL = 1e-5, 1e-4
 CONFIG5 = dict(K=5000, P=1 << 20, Q=4, n_iters=5, cg_iters=8, lm_lambda=1e-2)
+# Pose graph, card vs CPU (phase 17): B4 adds in another order than
+# index_add_, and 12 GN steps of 32 CG iterations carry the difference.
+# Rotations and log-scales 1e-4, translations 1e-3 (metres on the 5k graph's
+# ~100 m chain; the chain's own noise is 0.02 m).
+PG_R_ATOL, PG_T_ATOL, PG_LAM_ATOL = 1e-4, 1e-3, 1e-4
+REVISIT_FRAMES = 480  # the turn at ~0.83 deg a frame: the prior-seeded PnP's reach at 640x480
+RENDER_THREADS = 6
 
 
 def log(msg):
@@ -534,6 +561,18 @@ def mono_phases(dev, smi) -> None:
         raise AssertionError(f"mono: {st['keyframes']} keyframes inserted, {st['ba_runs']} BAs applied")
     if st["track_failures"] != 0 or ate >= ATE_LIMIT_M:
         raise AssertionError(f"mono: {st['track_failures']} track failures, Sim3 ATE {ate} m")
+    # The final pose-graph pass: the SE3 chain with its scale edges (no
+    # closure in this run), kept unless it grows the blown fraction.
+    t0 = time.perf_counter()
+    slam.optimize_pose_graph()
+    torch.cuda.synchronize()
+    pass_s = time.perf_counter() - t0
+    idxs, est = slam.positions()
+    ate_final, _ = ate_rmse(est, scene.ground_truth()[idxs, :3, 3], align_scale=True)
+    log(f"[mono] final pose-graph pass: {st['final_pass']} in {pass_s:.3f} s, Sim3 ATE "
+        f"{ate:.6f} -> {ate_final:.6f} m; {smi}")
+    if st["final_pass"] not in ("smooth", "reverted") or not np.isfinite(ate_final):
+        raise AssertionError(f"mono: final pass {st['final_pass']}, ATE {ate_final}")
 
     # 16. init_step and mine_step on the card vs the CPU: the same CPU
     #     features, the same minimal sets
@@ -595,6 +634,230 @@ def mono_phases(dev, smi) -> None:
     for name, (ms, dev_ms, syncs) in cost.items():
         log(f"[init/mine] {name}: {ms:.3f} ms per call, {dev_ms:.3f} ms device, {syncs} host "
             f"syncs per call; {smi}")
+
+
+def sim3_of(g):
+    """The Sim3 graph over a PoseGraph's SE3 edges: log-scales 0, Z_s = 1."""
+    from visual_slam_tpu_torch.models import pose_graph as pg
+
+    z = torch.zeros_like
+    return pg.Sim3Graph(R=g.R, t=g.t, lam=z(g.t[:, 0]), e_i=g.e_i, e_j=g.e_j, Z_R=g.Z_R, Z_t=g.Z_t,
+                        Z_ls=z(g.w), w=g.w, w_lam=g.w, fixed=g.fixed)
+
+
+def to_device(g, dev):
+    return type(g)(*(a.to(dev) for a in g))
+
+
+def render_revisit(n_frames):
+    """The revisiting scene's frames, rendered in RENDER_THREADS threads
+    (NumPy and SciPy release the GIL for most of a frame)."""
+    from visual_slam_tpu_torch.utils.scene import SyntheticRGBDScene
+
+    scene = SyntheticRGBDScene(n_frames, trajectory="revisit")
+    with concurrent.futures.ThreadPoolExecutor(RENDER_THREADS) as ex:
+        return list(ex.map(lambda i: (i, *scene.render(i)), range(n_frames)))
+
+
+INDEXING = re.compile(r"indexFunc|indexSelect|index_elementwise|index_put|scatter|gather", re.IGNORECASE)
+
+
+def profile_rows(fn):
+    """(kernel name, device us, launches) of one fn() call, torch.profiler."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.key, device_us(e), e.count) for e in prof.key_averages() if device_us(e) > 0]
+
+
+def pg_phase(dev, smi) -> None:
+    """Phase 17: the pose graph on the card against the port's CPU path."""
+    from visual_slam_tpu_torch.models import pose_graph as pg
+    from visual_slam_tpu_torch.ops.kernels import seg_kernel
+    from visual_slam_tpu_torch.utils.synthetic import big_pose_graph
+
+    big, _ = big_pose_graph(5000, device="cpu")
+    cases = [("5k SE3", pg.optimize, big, dict(n_iters=12, cg_iters=32)),
+             ("5k Sim3", pg.optimize_sim3, sim3_of(big), dict(n_iters=12, cg_iters=32))]
+    for name, fn, g_cpu, kw in cases:
+        g_dev = to_device(g_cpu, dev)
+        ref = fn(g_cpu, **kw)
+        fn(g_dev, **kw)  # warm-up
+        torch.cuda.synchronize()
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        out = fn(g_dev, **kw)
+        torch.cuda.synchronize()
+        first_ms = 1e3 * (time.perf_counter() - t0)  # the second card call: warm
+        launches = {k: kernel_counts()[k] for k in ("cam_reduce", "cam_expand")}
+        again = fn(g_dev, **kw)
+        if not all(torch.equal(a, b) for a, b in zip(out, again)):
+            raise AssertionError(f"pose graph {name}: two card calls differ")
+        per = kw["n_iters"] * (1 + kw["cg_iters"])
+        if launches != {"cam_reduce": per, "cam_expand": per}:
+            raise AssertionError(f"pose graph {name}: launches {launches}, expected {per} each")
+        err = [(a.cpu() - b).abs().max().item() for a, b in zip(out[:-1], ref[:-1])]
+        bars = [PG_R_ATOL, PG_T_ATOL, PG_LAM_ATOL][:len(err)]
+        if not all(np.isfinite(e) and e <= b for e, b in zip(err, bars)):
+            raise AssertionError(f"pose graph {name}: card vs CPU max errors {err}, bars {bars}")
+        rows = profile_rows(lambda: fn(g_dev, **kw))
+        # Indexing kernels (index_add_, index_select, gathers, scatters): the
+        # reduce plan's integer bookkeeping launches a few a call; a GN step
+        # and a CG iteration launch none, so one GN step of one CG iteration
+        # launches as many as the whole solve.
+        one = profile_rows(lambda: fn(g_dev, n_iters=1, cg_iters=1))
+        indexing = {k: c for k, _, c in rows if INDEXING.search(k)}
+        if indexing != {k: c for k, _, c in one if INDEXING.search(k)}:
+            raise AssertionError(f"pose graph {name}: indexing kernels in the GN/CG loop: {indexing}")
+        dev_ms = sum(r[1] for r in rows) / 1e3
+        seg_ms = sum(r[1] for r in rows if "vslam_" in r[0] or "cam_" in r[0]) / 1e3
+        K, N = g_cpu.R.shape[0], 2 * g_cpu.e_i.shape[0] + (2 * g_cpu.s_i.shape[0] if fn is pg.optimize else 0)
+        log(f"[pose graph] {name}: K={K}, {N} slots, {kw['n_iters']} GN x {kw['cg_iters']} CG: card vs "
+            f"CPU max |dR| {err[0]:.3g}, |dt| {err[1]:.3g}" + (f", |dlam| {err[2]:.3g}" if len(err) > 2 else "")
+            + f"; cost {float(out[-1]):.6g} (CPU {float(ref[-1]):.6g}); two card calls bit-equal; "
+            f"launches a call B4 {launches['cam_reduce']}, B5 {launches['cam_expand']}; indexing kernels "
+            f"a call {sum(indexing.values())}, all in the reduce plan (as many at 1 GN x 1 CG)")
+        log(f"[pose graph] {name}: {first_ms:.3f} ms a call (wall, warm, synchronised), {dev_ms:.3f} ms "
+            f"device over {sum(r[2] for r in rows)} device ops (B4/B5 {seg_ms:.3f} ms): device busy share "
+            f"{dev_ms / first_ms:.3f}; {smi}")
+        for key, us, count in sorted(rows, key=lambda r: -r[1])[:4]:
+            log(f"[pose graph]   {us / 1e3:8.4f} ms {count:5d}x  {key[:90]}")
+
+
+def score_phase(dev, smi) -> None:
+    """Phase 18: loop scoring on the card against the CPU."""
+    from visual_slam_tpu_torch.models import loop_closure as lc
+
+    rng = np.random.default_rng(18)
+    K, F = 64, 1024
+    db = rng.integers(0, 2**32, (K, F, 8), dtype=np.uint32)
+    flips = rng.integers(0, 2**32, (F, 8), dtype=np.uint32)
+    cur = db[5] ^ (flips & (flips >> 1) & (flips >> 2) & (flips >> 3) & np.uint32(0x11111111))
+    db_valid, cur_valid = rng.uniform(size=(K, F)) < 0.9, rng.uniform(size=F) < 0.95
+    mask = np.ones(K, bool)
+    mask[[9, 40]] = False
+    args = [torch.from_numpy(np.ascontiguousarray(a)) for a in
+            (cur.view(np.int32), cur_valid, db.view(np.int32), db_valid, mask)]
+    ref = lc.score_keyframes(*args, 48.0)
+    dargs = [a.to(dev) for a in args]
+    got = lc.score_keyframes(*dargs, 48.0)
+    if not torch.equal(got.cpu(), ref) or int(ref[5]) < 500:
+        raise AssertionError(f"loop scoring: card differs from the CPU (or no revisit hit: {int(ref[5])})")
+    ms = cuda_ms(lambda: lc.score_keyframes(*dargs, 48.0), iters=20, warmup=3)
+    dms, how = device_ms(lambda: lc.score_keyframes(*dargs, 48.0), iters=10)
+    chunk = max(1, lc.SCORE_CHUNK_BYTES // (4 * F * F))
+    log(f"[loop scoring] {K} keyframes x {F} features ({-(-K // chunk)} chunks of {chunk}): card equal to "
+        f"the CPU; revisit score {int(ref[5])}, next best {int(np.sort(ref.numpy())[-2])}; {ms:.4f} ms a "
+        f"call, {dms:.4f} ms device ({how}); {smi}")
+
+
+def close_loop_phase(dev, smi) -> None:
+    """Phase 19: Slam._close_loop on RingScene, card and CPU."""
+    from visual_slam_tpu_torch.utils.synthetic import RingScene
+
+    keys = ("loop_closures", "loop_verify_fail", "loop_rejected_warp", "loop_rejected_unsatisfied")
+    for case, kw, handle in (("genuine", dict(drift_scale=1.15), (39, 0, 25, True)),
+                             ("false", dict(drift_scale=1.12), (39, 20, 25, False))):
+        res = {}
+        for device in (dev, "cpu"):
+            sc = RingScene(np.random.default_rng(7), device=device, **kw)
+            m = sc.slam.map
+            before = (m.kf_R.copy(), m.kf_t.copy(), m.pt_xyz.copy())
+            err0 = sc.endpoint_error()
+            h = sc.verify_handle(*handle)
+            if device != "cpu":
+                torch.cuda.synchronize()
+                zero_kernel_counts()
+            t0 = time.perf_counter()
+            sc.slam._close_loop(h)
+            if device != "cpu":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {k: kernel_counts()[k] for k in ("cam_reduce", "cam_expand")}
+            st = sc.slam.stats
+            res[str(device)] = (tuple(st[k] for k in keys), st["loop_accepted"] + st["loop_rejected_detail"],
+                                sc, before, err0, sc.endpoint_error(), wall, counts)
+        (dec, det, sc, before, err0, err1, wall, counts), (cdec, cdet, csc, *_ ) = res[str(dev)], res["cpu"]
+        if dec != cdec or [sorted(d) for d in det] != [sorted(d) for d in cdet]:
+            raise AssertionError(f"close loop {case}: card {dec} {det}, CPU {cdec} {cdet}")
+        m = sc.slam.map
+        if case == "genuine":
+            if dec[0] != 1 or not err1 < 0.5 * err0:
+                raise AssertionError(f"close loop {case}: {dec}, endpoint error {err0} -> {err1}")
+            dk = max(float(np.abs(m.kf_t - csc.slam.map.kf_t).max()),
+                     float(np.abs(m.kf_R - csc.slam.map.kf_R).max()))
+        else:
+            if dec[0] != 0 or dec[2] + dec[3] != 1:
+                raise AssertionError(f"close loop {case}: {dec}")
+            if not all(np.array_equal(a, b) for a, b in zip((m.kf_R, m.kf_t, m.pt_xyz), before)):
+                raise AssertionError(f"close loop {case}: the map changed")
+            dk = 0.0
+        log(f"[close loop] {case}: {dict(zip(keys, dec))} on card and CPU, records {det}; endpoint "
+            f"error {err0:.4f} -> {err1:.4f} m; keyframe poses card vs CPU within {dk:.3g}"
+            f"{'' if case == 'genuine' else ', map bit for bit unchanged'}; {1e3 * wall:.1f} ms, "
+            f"launches B4 {counts['cam_reduce']} B5 {counts['cam_expand']}; {smi}")
+
+
+def revisit_phase(dev, smi, frames) -> dict:
+    """Phase 20: the RGB-D SLAM loop on the revisiting scene, twice."""
+    from visual_slam_tpu_torch.config import SlamConfig
+    from visual_slam_tpu_torch.utils.evaluate import ate_rmse
+    from visual_slam_tpu_torch.utils.scene import SyntheticRGBDScene
+
+    gt = SyntheticRGBDScene(REVISIT_FRAMES, trajectory="revisit").ground_truth()
+    runs = []
+    for _ in range(2):
+        slam, wall, launches = run_slam(frames, SlamConfig(use_depth=True), dev)
+        runs.append((slam, wall, launches))
+    (slam, wall, launches), (slam2, wall2, launches2) = runs
+    st = slam.stats
+    idxs, est = slam.positions()
+    if len(idxs) != REVISIT_FRAMES or not np.isfinite(est).all():
+        raise AssertionError(f"revisit: {len(idxs)} poses, finite {np.isfinite(est).all()}")
+    ate, _ = ate_rmse(est, gt[idxs, :3, 3], align_scale=False)
+    # Launches: B1/B3 once a frame; per BA step B4 10 and B5 23 (phase 6);
+    # per pose-graph solve (pgo_iters GN x 33) B4 and B5 each; B5 once more
+    # per warp-validation reprojection (two per closure that reaches it).
+    n_ba = (st["ba_runs"] + st["ba_dropped_stale"] + st["ba_rejected"] + st["ba_discarded_loop"]
+            + (slam._pending_ba is not None))
+    n_pg = st["loop_closures"] + st["loop_rejected_unsatisfied"] + st["loop_rejected_warp"]
+    n_warp = st["loop_closures"] + st["loop_rejected_warp"]
+    it, pg_calls = slam.cfg.ba.iters, slam.cfg.loop.pgo_iters * 33
+    want = {"detect_blur": REVISIT_FRAMES, "patch": REVISIT_FRAMES,
+            "cam_reduce": it * n_ba + pg_calls * n_pg,
+            "cam_expand": (2 * it + 3) * n_ba + pg_calls * n_pg + 2 * n_warp}
+    if launches != want:
+        raise AssertionError(f"revisit: launches {launches}, expected {want}")
+    summ = slam.timers.summary()
+    loop_t = summ.get("kf_loop", {})
+    kfs = [f.frame_idx for f in slam.trajectory if f.is_keyframe]
+    log(f"[revisit] {REVISIT_FRAMES} frames: {REVISIT_FRAMES / wall:.2f} frames/s ({wall:.3f} s wall; "
+        f"second run {REVISIT_FRAMES / wall2:.2f}), ATE {ate:.6f} m (limit {ATE_LIMIT_M}), "
+        f"{st['track_failures']} track failures, {st['keyframes']} keyframes at {kfs}; {smi}")
+    log(f"[revisit] closures: {st['loop_closures']} accepted {st['loop_accepted']}; rejected: "
+        f"covisibility {st['loop_rejected_covis']}, verification {st['loop_verify_fail']} (best "
+        f"{st['loop_verify_best']} inliers), unsatisfied edge {st['loop_rejected_unsatisfied']}, warp "
+        f"{st['loop_rejected_warp']} {st['loop_rejected_detail']}; {st['loop_candidates']} candidates "
+        f"verified; BAs applied {st['ba_runs']}, dropped {st['ba_dropped_stale']}, rejected "
+        f"{st['ba_rejected']}, discarded by a closure {st['ba_discarded_loop']}")
+    log(f"[revisit] launches {launches} (= {n_ba} BA steps, {n_pg} pose-graph solves, {n_warp} warp "
+        f"validations); kf_loop {loop_t.get('calls', 0)} calls, median {loop_t.get('median_ms', 0):.3f} ms, "
+        f"total {sum(slam.timers.ms.get('kf_loop', [])):.3f} ms; median track "
+        f"{summ['track']['median_ms']:.3f} ms, BA solve {summ['ba_solve']['median_ms']:.3f} ms")
+    if st["loop_closures"] < 1 or st["track_failures"] != 0 or ate >= ATE_LIMIT_M:
+        raise AssertionError(f"revisit: {st['loop_closures']} closures, {st['track_failures']} failures, "
+                             f"ATE {ate} m")
+    same = (st == slam2.stats and launches == launches2
+            and len(slam.trajectory) == len(slam2.trajectory)
+            and all((a.frame_idx, a.is_keyframe) == (b.frame_idx, b.is_keyframe)
+                    and np.array_equal(a.R_cw, b.R_cw) and np.array_equal(a.t_cw, b.t_cw)
+                    for a, b in zip(slam.trajectory, slam2.trajectory))
+            and np.array_equal(slam.map.pt_xyz, slam2.map.pt_xyz))
+    if not same:
+        raise AssertionError("revisit: the second card run differs from the first")
+    log("[revisit] second card run: the same history, stats and launches, poses and landmarks bit-equal")
+    return launches
 
 
 def main() -> int:
@@ -870,6 +1133,18 @@ def main() -> int:
 
     seg_times = seg_phases(dev, smi)
     mono_phases(dev, smi)
+    lap = [time.perf_counter()]
+    for phase in (pg_phase, score_phase, close_loop_phase):
+        phase(dev, smi)
+        lap.append(time.perf_counter())
+    frames = render_revisit(REVISIT_FRAMES)
+    lap.append(time.perf_counter())
+    revisit_launches = revisit_phase(dev, smi, frames)
+    lap.append(time.perf_counter())
+    secs = np.diff(lap)
+    log(f"[loop] phases 17-20 took {lap[-1] - lap[0]:.1f} s: pose graph {secs[0]:.1f}, scoring "
+        f"{secs[1]:.1f}, close loop {secs[2]:.1f}, rendering {REVISIT_FRAMES} frames in {RENDER_THREADS} "
+        f"threads {secs[3]:.1f}, two revisit runs {secs[4]:.1f}; revisit launches {revisit_launches}")
 
     kernels = [
         dict(name="detect_blur", route="cuda", source="visual_slam_tpu_torch/csrc/detect_blur.cu",

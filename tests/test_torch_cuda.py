@@ -14,7 +14,7 @@ from torch_parity import (RAGGED_SIZES, cam_reduce_walk, checkerboard, desc_bits
 from visual_slam_tpu_torch import convert
 from visual_slam_tpu_torch.config import SlamConfig
 from visual_slam_tpu_torch.models import frontend
-from visual_slam_tpu_torch.models import ba, ba_large
+from visual_slam_tpu_torch.models import ba, ba_large, loop_closure, pose_graph
 from visual_slam_tpu_torch.ops.kernels import build, detect_kernel, patch_kernel, seg_kernel
 from visual_slam_tpu_torch.pipeline import Slam, run_sequence
 from visual_slam_tpu_torch.utils import synthetic
@@ -367,3 +367,89 @@ def test_online_ba_card_matches_cpu(cuda, solver):
     # Monocular scale is a gauge freedom here: compare scale-aligned.
     s = np.linalg.norm(og.t[1].cpu().numpy()) / np.linalg.norm(oc.t[1].numpy())
     np.testing.assert_allclose(og.t.cpu().numpy() / s, oc.t.numpy(), atol=BA_T_ATOL)
+
+
+# Pose graph on the card: B4 adds in another order than index_add_; 25 GN
+# steps carry the difference (the chip_smoke.py phase-17 bars).
+PG_R_ATOL, PG_T_ATOL, PG_LAM_ATOL = 1e-4, 1e-3, 1e-4
+
+
+def _pose_graphs():
+    """A 200-keyframe chain with loop edges (big_pose_graph's draws), and its
+    Sim3 graph, on the CPU."""
+    g, _ = synthetic.big_pose_graph(200, device="cpu")
+    g = pose_graph.add_edges(g, np.array([0, 50], np.int32), np.array([150, 199], np.int32),
+                             g.Z_R[:2], g.Z_t[:2] * 3.0, np.array([50.0, 5.0], np.float32))
+    z = torch.zeros_like
+    s3 = pose_graph.Sim3Graph(R=g.R, t=g.t, lam=z(g.t[:, 0]), e_i=g.e_i, e_j=g.e_j, Z_R=g.Z_R,
+                              Z_t=g.Z_t, Z_ls=z(g.w), w=g.w, w_lam=g.w, fixed=g.fixed)
+    return [(pose_graph.optimize, g), (pose_graph.optimize_sim3, s3)]
+
+
+def _to(g, device):
+    return type(g)(*(a.to(device) for a in g))
+
+
+@pytest.mark.parametrize("which", [0, 1], ids=["se3", "sim3"])
+def test_pose_graph_kernels_match_plain(cuda, which, monkeypatch):
+    """optimize / optimize_sim3 on the card through B4/B5 against the same
+    solve on the card through their plain versions, and against the CPU:
+    within the bars; B4 and B5 launched n_iters x (1 + cg_iters) times a
+    call each."""
+    fn, g = _pose_graphs()[which]
+    gd = _to(g, cuda)
+    n_red, n_exp = seg_kernel.reduce_launches, seg_kernel.expand_launches
+    out = fn(gd, n_iters=6, cg_iters=20)
+    assert (seg_kernel.reduce_launches - n_red, seg_kernel.expand_launches - n_exp) == (6 * 21, 6 * 21)
+    monkeypatch.setattr(seg_kernel, "cam_reduce", lambda d, c, K, plan=None: seg_kernel.cam_reduce_torch(d, c, K))
+    monkeypatch.setattr(seg_kernel, "cam_expand", seg_kernel.cam_expand_torch)
+    plain = fn(gd, n_iters=6, cg_iters=20)
+    monkeypatch.undo()
+    cpu = fn(g, n_iters=6, cg_iters=20)
+    for other in (plain, cpu):
+        for a, b, bar in zip(out[:-1], other[:-1], (PG_R_ATOL, PG_T_ATOL, PG_LAM_ATOL)):
+            np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), atol=bar)
+        assert abs(float(out[-1]) - float(other[-1])) <= 1e-3 * abs(float(other[-1])) + 1e-6
+
+
+@pytest.mark.parametrize("which", [0, 1], ids=["se3", "sim3"])
+def test_pose_graph_card_runs_repeat(cuda, which):
+    """Two card solves of one graph: bit-equal (B4 adds in its plan's order,
+    no float atomics)."""
+    fn, g = _pose_graphs()[which]
+    gd = _to(g, cuda)
+    a, b = fn(gd, n_iters=6, cg_iters=20), fn(gd, n_iters=6, cg_iters=20)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_score_keyframes_card_matches_cpu(cuda):
+    """Loop scoring on the card: the CPU's integers, at 40 keyframes x 1024
+    features (three chunks of 16)."""
+    rng = np.random.default_rng(5)
+    K, F = 40, 1024
+    db = rng.integers(0, 2**32, (K, F, 8), dtype=np.uint32)
+    cur = db[3].copy()
+    cur[:, 0] ^= np.uint32(0x0F0F)
+    args = [torch.from_numpy(np.ascontiguousarray(a)) for a in
+            (cur.view(np.int32), rng.uniform(size=F) < 0.9, db.view(np.int32),
+             rng.uniform(size=(K, F)) < 0.9, rng.uniform(size=K) < 0.9)]
+    ref = loop_closure.score_keyframes(*args, 48.0)
+    got = loop_closure.score_keyframes(*(a.to(cuda) for a in args), 48.0)
+    assert torch.equal(got.cpu(), ref) and int(ref.max()) > 500
+
+
+def test_close_loop_card_matches_cpu(cuda):
+    """Slam._close_loop on RingScene (1.15x scale drift, 25 inliers) on the
+    card and the CPU: accepted on both, the same record, keyframe poses
+    within the pose-graph bars."""
+    runs = []
+    for device in (cuda, "cpu"):
+        sc = synthetic.RingScene(np.random.default_rng(7), device=device)
+        sc.slam._close_loop(sc.verify_handle(39, 0, 25))
+        runs.append(sc)
+    g, c = runs
+    assert g.slam.stats["loop_closures"] == c.slam.stats["loop_closures"] == 1
+    assert [sorted(d.items()) for d in g.slam.stats["loop_accepted"]] == \
+        [sorted(d.items()) for d in c.slam.stats["loop_accepted"]]
+    np.testing.assert_allclose(g.slam.map.kf_R, c.slam.map.kf_R, atol=PG_R_ATOL)
+    np.testing.assert_allclose(g.slam.map.kf_t, c.slam.map.kf_t, atol=PG_T_ATOL)

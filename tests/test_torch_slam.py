@@ -1,8 +1,10 @@
 """The port's whole SLAM loop against the JAX package's Slam on the CPU, on
 the half-size synthetic scene (320x240, halved intrinsics, K=256, M=512):
-RGB-D over 60 frames, monocular on every 3rd frame, and the failure,
-relocalisation and keyframe-veto paths. Loop closure is off on the JAX
-side (it is not ported; under 12 keyframes it never scores anyway).
+RGB-D over 60 frames, monocular on every 3rd frame, the failure,
+relocalisation and keyframe-veto paths, and the monocular final pose-graph
+pass. Both sides run loop closure with its defaults: under 12 keyframes it
+stores features and never scores (tests/test_torch_loop_slam.py closes a
+loop).
 
 The torch.Generator cannot replay JAX's RANSAC draws, but the scene is
 noise-free, so the refined essential matrix, its inlier set and every gate
@@ -18,6 +20,8 @@ last-bit change in the 8-point solver (U[:, :2] @ Vt[:2] in place of the
 JAX package's (U * diag(1,1,0)) @ Vt) moved the fifth keyframe from frame
 156 to 150. Keep the port's arithmetic the reference's where it can be.
 """
+import concurrent.futures
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -54,7 +58,6 @@ def _configs(use_depth, **keyframe):
         for k, v in keyframe.items():
             setattr(cfg.keyframe, k, v)
         out.append(cfg)
-    out[0].loop.enabled = False
     return out
 
 
@@ -249,3 +252,26 @@ def test_keyframe_veto_paths_match_jax(mono_scene):
     assert tslam.stats["kf_vetoed_stale"] >= 1
     assert tslam.stats["ba_dropped_stale"] >= 5
     assert tslam.stats["culled"] > 100
+
+
+def test_final_pose_graph_pass_matches_jax(mono):
+    """The monocular final pass after the run (no closure): the SE3 chain
+    with its scale edges, kept or reverted on the blown-fraction rule, the
+    same way on both sides; the rewritten camera centres within
+    CENTRE_ATOL_BA, as the run's (the pass starts from them)."""
+    scene, jslam, tslam, _, _ = mono
+    # _both closed the JAX Slam's fetch pool; the pass may dispatch a BA.
+    jslam._fetch_pool = concurrent.futures.ThreadPoolExecutor(max_workers=2)
+    try:
+        for slam in (jslam, tslam):
+            slam.optimize_pose_graph()
+    finally:
+        jslam.close()
+    assert tslam.stats["final_pass"] == jslam.stats["final_pass"]
+    assert tslam.stats["final_pass"] in ("smooth", "reverted")
+    assert tslam.stats["ba_runs"] == jslam.stats["ba_runs"]
+    dc = np.linalg.norm(_centres(tslam.trajectory) - _centres(jslam.trajectory), axis=-1)
+    assert dc.max() < CENTRE_ATOL_BA
+    idxs, est = tslam.positions()
+    ate, _ = evaluate.ate_rmse(est, scene.ground_truth()[idxs, :3, 3], align_scale=True)
+    assert np.isfinite(ate) and ate < 0.04

@@ -179,26 +179,37 @@ def test_evaluate_matches_jax():
 
 def test_scene_depth_is_consistent_with_poses():
     """A pixel back-projected with frame 0's depth and reprojected with the
-    ground-truth pose of frame 5 lands where frame 5's depth agrees."""
-    scene = SyntheticRGBDScene(6, 120, 160, intrinsics=ICL_INTR / 4)
-    (_, g0, d0), *_, (_, g5, d5) = list(scene.frames())
-    assert g0.dtype == d0.dtype == np.float32
-    assert 0.0 <= g0.min() and g0.max() <= 1.0 and g0.std() > 0.05
-    assert 1.0 < d0.min() and d0.max() <= 4.0
-    fx, fy, cx, cy = scene.intrinsics
-    v, u = np.mgrid[20:100:7, 20:140:7].reshape(2, -1)
-    z = d0[v, u]
-    Xw = np.stack([(u - cx) / fx * z, (v - cy) / fy * z, z], -1)  # world = frame 0
-    R5, t5 = scene.pose_cw(5)
-    Xc = Xw @ R5.T + t5
-    u5, v5 = fx * Xc[:, 0] / Xc[:, 2] + cx, fy * Xc[:, 1] / Xc[:, 2] + cy
-    inside = (u5 > 1) & (u5 < 158) & (v5 > 1) & (v5 < 118)
-    assert inside.mean() > 0.9
-    z5 = d5[np.round(v5[inside]).astype(int), np.round(u5[inside]).astype(int)]
-    assert np.median(np.abs(z5 - Xc[inside, 2])) < 0.01
-    # Deterministic from the seed.
-    again = SyntheticRGBDScene(6, 120, 160, intrinsics=ICL_INTR / 4)
-    np.testing.assert_array_equal(again.render(5)[0], g5)
+    ground-truth pose of frame 5 lands where frame 5's depth agrees, on the
+    default trajectory and on the revisiting one; the revisiting one comes
+    back to frame 0's pose and image at 90% of its frames."""
+    for trajectory, n_frames in (("default", 6), ("revisit", 481)):
+        scene = SyntheticRGBDScene(n_frames, 120, 160, intrinsics=ICL_INTR / 4, trajectory=trajectory)
+        (_, g0, d0), (_, g5, d5) = (next(scene.frames(i, i + 1)) for i in (0, 5))
+        assert g0.dtype == d0.dtype == np.float32
+        assert 0.0 <= g0.min() and g0.max() <= 1.0 and g0.std() > 0.05
+        assert 1.0 < d0.min() and d0.max() <= 4.0
+        fx, fy, cx, cy = scene.intrinsics
+        v, u = np.mgrid[20:100:7, 20:140:7].reshape(2, -1)
+        z = d0[v, u]
+        Xw = np.stack([(u - cx) / fx * z, (v - cy) / fy * z, z], -1)  # world = frame 0
+        R5, t5 = scene.pose_cw(5)
+        Xc = Xw @ R5.T + t5
+        u5, v5 = fx * Xc[:, 0] / Xc[:, 2] + cx, fy * Xc[:, 1] / Xc[:, 2] + cy
+        inside = (u5 > 1) & (u5 < 158) & (v5 > 1) & (v5 < 118)
+        assert inside.mean() > 0.9
+        z5 = d5[np.round(v5[inside]).astype(int), np.round(u5[inside]).astype(int)]
+        assert np.median(np.abs(z5 - Xc[inside, 2])) < 0.01
+        # Deterministic from the seed.
+        again = SyntheticRGBDScene(n_frames, 120, 160, intrinsics=ICL_INTR / 4, trajectory=trajectory)
+        np.testing.assert_array_equal(again.render(5)[0], g5)
+    back = int(scene.REVISIT_TURN * (n_frames - 1))
+    R, t = scene.pose_cw(back)
+    np.testing.assert_allclose(R, np.eye(3), atol=1e-12)
+    np.testing.assert_allclose(t, 0.0, atol=1e-12)
+    np.testing.assert_allclose(scene.render(back)[0], g0, atol=1e-6)
+    # Half way round the camera looks back at the wall behind frame 0.
+    R_half, _ = scene.pose_cw(back // 2)
+    assert R_half[2, 2] < -0.99
 
 
 def test_monocular_init_is_not_ported():

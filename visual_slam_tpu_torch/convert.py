@@ -3,7 +3,8 @@
 SLAM has no learned weights. What both implementations must share is:
 the constant descriptor tables (PATTERN, _D, _WX, _WY), a map snapshot
 (xyz, desc, valid), a frame's features (uv, desc, score, valid), poses,
-a bundle-adjustment problem (BAProblem) and a whole SLAM map (SlamMap).
+a bundle-adjustment problem (BAProblem), a whole SLAM map (SlamMap), a
+pose graph (PoseGraph, Sim3Graph) and a tracking result (TrackStep).
 Each `from_jax_*` takes those as NumPy arrays — what `np.asarray` of the
 JAX values gives — and returns the port's tensors on `device`.
 
@@ -20,6 +21,7 @@ from .config import MapConfig
 from .models.ba import BAProblem
 from .models.frontend import Features
 from .models.map_state import SlamMap
+from .models.pose_graph import PoseGraph, Sim3Graph
 
 
 def from_jax_desc(desc: np.ndarray, device) -> torch.Tensor:
@@ -125,3 +127,54 @@ def to_jax_map_arrays(m: SlamMap) -> dict[str, np.ndarray]:
     out["pt_desc"] = out["pt_desc"].view(np.uint32)
     out.update({name: getattr(m, name) for name in _MAP_COUNTS})
     return out
+
+
+_GRAPH_INT = {"e_i", "e_j", "s_i", "s_j"}
+
+
+def _graph(cls, fields, device):
+    f = fields._asdict() if hasattr(fields, "_asdict") else dict(fields)
+    out = {}
+    for name in cls._fields:
+        dtype = np.int32 if name in _GRAPH_INT else bool if name == "fixed" else np.float32
+        out[name] = torch.from_numpy(np.array(np.asarray(f[name]), dtype)).to(device)
+    return cls(**out)
+
+
+def from_jax_pose_graph(fields, device) -> PoseGraph:
+    """A PoseGraph of the JAX package (a NamedTuple or mapping of NumPy
+    arrays) as the port's on `device`: vertex ids int32, `fixed` bool, the
+    rest float32."""
+    return _graph(PoseGraph, fields, device)
+
+
+def from_jax_sim3_graph(fields, device) -> Sim3Graph:
+    """A Sim3Graph of the JAX package as the port's, as from_jax_pose_graph."""
+    return _graph(Sim3Graph, fields, device)
+
+
+def from_jax_track_blob(blob: np.ndarray, M: int, K: int, device):
+    """A tracking result of the JAX package, its packed blob (`_pack_blob`:
+    R (9), t (3), n_inliers, 3 spare, then inliers (M), idx2 (M), uv (K,2),
+    valid (K), desc (K,8) as float32 bits), as (TrackStep, Features) on
+    `device`: the step the port's track_step would return, and the frame's
+    features the blob carries."""
+    from .pipeline import TrackStep
+
+    b = np.asarray(blob, np.float32)
+    o = 16
+    inl, idx2 = b[o:o + M], b[o + M:o + 2 * M]
+    o += 2 * M
+    uv = b[o:o + 2 * K].reshape(K, 2)
+    valid = b[o + 2 * K:o + 3 * K]
+    desc = np.ascontiguousarray(b[o + 3 * K:o + 11 * K]).view(np.uint32).reshape(K, 8)
+    step = TrackStep(
+        R=_f32(b[:9].reshape(3, 3), device), t=_f32(b[9:12], device),
+        inliers=torch.from_numpy(inl > 0.5).to(device),
+        n_inliers=torch.tensor(int(b[12]), dtype=torch.int64, device=device),
+        idx2=torch.from_numpy(idx2.astype(np.int64)).to(device), used_ransac=False,
+    )
+    feats = Features(uv=_f32(uv, device), desc=from_jax_desc(desc, device),
+                     score=torch.zeros(K, dtype=torch.float32, device=device),
+                     valid=torch.from_numpy(valid > 0.5).to(device))
+    return step, feats

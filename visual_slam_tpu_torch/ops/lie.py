@@ -1,5 +1,5 @@
 """SO(3) / SE(3) exponential maps (port of visual_slam_tpu/ops/lie.py:18-51,
-:86-102, :126-134).
+:86-102, :126-134, :171-195).
 
 The replacement for the reference's `cv2.Rodrigues` usage
 (src/v2/helper_functions.py:269-278). Functions take arbitrary leading
@@ -24,6 +24,11 @@ def hat(w: torch.Tensor) -> torch.Tensor:
         ],
         dim=-2,
     )
+
+
+def vee(W: torch.Tensor) -> torch.Tensor:
+    """Inverse of hat: (...,3,3) -> (...,3)."""
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], dim=-1)
 
 
 def _coefficients(w: torch.Tensor):
@@ -81,8 +86,12 @@ def scale_edge_terms(R, t, i, j, meas):
     Returns (r (E,), Ji (E,6), Jj (E,6)).
     """
     i, j = i.long(), j.long()
-    Ri, ti = R[i], t[i]
-    Rj, tj = R[j], t[j]
+    return scale_edge_terms_at(R[i], t[i], R[j], t[j], meas)
+
+
+def scale_edge_terms_at(Ri, ti, Rj, tj, meas):
+    """scale_edge_terms on poses already gathered per edge: Ri, Rj (E,3,3),
+    ti, tj (E,3)."""
     R_rel = torch.einsum("eab,ecb->eac", Ri, Rj)  # R_i R_j^T
     t_rel = ti - torch.einsum("eab,eb->ea", R_rel, tj)
     nrm = torch.sqrt(torch.sum(t_rel * t_rel, dim=-1) + 1e-12)

@@ -43,14 +43,31 @@ def _rotation(yaw: float, pitch: float, roll: float) -> np.ndarray:
 class SyntheticRGBDScene:
     """A rendered RGB-D sequence of `n_frames` frames of `height` x `width`.
 
-    Over 60 frames the camera travels ~0.3 m and turns ~5°, so the first
-    frame's landmarks stay in view throughout; the motion continues at the
-    same rate for longer sequences.
+    trajectory="default": over 60 frames the camera travels ~0.3 m and turns
+    ~5°, so the first frame's landmarks stay in view throughout; the motion
+    continues at the same rate for longer sequences.
+
+    trajectory="revisit": the camera turns a full circle about the vertical
+    axis while its centre loops 1 m into the room and back, and returns to
+    frame 0's pose at 90% of the sequence; the last 10% turn on past it, over
+    the start of the circle again. Every wall passes through the view, so
+    the landmarks of the start are out of sight for most of the run and the
+    return is a revisit (a loop to close). The turn's rate is set by
+    n_frames: tracking seeds PnP with the previous frame's pose and gates
+    inliers at 8 px, so a frame may turn at most ~0.9° at 640x480 (480
+    frames or more) and ~1.8° at 320x240 (240 or more).
     """
 
+    TRAJECTORIES = ("default", "revisit")
+    REVISIT_TURN = 0.9  # the share of the frames the full turn takes
+
     def __init__(self, n_frames: int = 60, height: int = 480, width: int = 640,
-                 intrinsics: np.ndarray | None = None, seed: int = 0):
+                 intrinsics: np.ndarray | None = None, seed: int = 0,
+                 trajectory: str = "default"):
+        if trajectory not in self.TRAJECTORIES:
+            raise ValueError(f"trajectory must be one of {self.TRAJECTORIES}, not {trajectory!r}")
         self.n_frames = n_frames
+        self.trajectory = trajectory
         self.height, self.width = height, width
         self.intrinsics = (
             ICL_INTRINSICS.copy() if intrinsics is None
@@ -66,7 +83,8 @@ class SyntheticRGBDScene:
             )
             for side in (0, 1):
                 self._faces.append((a, side, b, c, self._texture(rng, shape)))
-        self._R_wc, self._C = zip(*(self._pose_wc(i) for i in range(n_frames)))
+        pose = self._pose_wc if trajectory == "default" else self._revisit_pose_wc
+        self._R_wc, self._C = zip(*(pose(i) for i in range(n_frames)))
 
     @staticmethod
     def _texture(rng: np.random.Generator, shape) -> np.ndarray:
@@ -84,6 +102,16 @@ class SyntheticRGBDScene:
         C = np.array([0.25 * s, -0.05 * np.sin(np.pi * s), 0.15 * s])
         deg = np.pi / 180.0
         R = _rotation(4.0 * deg * s, 2.0 * deg * np.sin(np.pi * s), 1.0 * deg * s)
+        return R, C
+
+    def _revisit_pose_wc(self, i: int):
+        """Frame i of the "revisit" trajectory: yaw th = 2 pi i / (0.9 (n-1)),
+        the centre (0.15 sin th, 0.03 sin 2th, 0.5 (1 - cos th)), at least
+        ~1 m from every wall, with a small pitch and roll wobble."""
+        th = 2.0 * np.pi * i / (self.REVISIT_TURN * max(self.n_frames - 1, 1))
+        C = np.array([0.15 * np.sin(th), 0.03 * np.sin(2 * th), 0.5 * (1.0 - np.cos(th))])
+        deg = np.pi / 180.0
+        R = _rotation(th, 2.0 * deg * np.sin(2 * th), 1.0 * deg * np.sin(th))
         return R, C
 
     def __len__(self) -> int:
