@@ -4,14 +4,19 @@
     python3 chip_smoke.py
 
 Phases, each raising on failure:
-  1. device    require CUDA; print the card's name and power limit
+  1. device    require CUDA; print the card's name and power limit, and
+               whether the native PNG loader (host IO) builds here
   2. build     compile the hand-written kernels (csrc/*.cu) with nvcc
   3. B1        detect+blur kernel (and its blur-off B2 mode) vs its plain
                PyTorch version on the card, bit for bit, on smoothed noise
                and a checkerboard (plateau ties) at 480x640 and on uniform
-               noise at ragged sizes, each with border 16 and 0
-  4. B3        patch kernel vs its plain version, bit-exact, K=1024
-  5. frontend  the whole front-end on the card vs the port's CPU path
+               noise at ragged sizes, each with border 16 and 0; on stacks
+               (B=4 at 480x640, B=3 at 37x600 and 45x70), one launch bit-
+               equal to the plain version and to B single launches
+  4. B3        patch kernel vs its plain version, bit-exact, K=1024; on the
+               same stacks, one launch bit-equal to both
+  5. frontend  the whole front-end on the card vs the port's CPU path;
+               extract_batch on 4 frames bit-equal to 4 extract calls
   6. RGB-D     the SLAM loop, run_sequence over 60 synthetic RGB-D frames
                at 640x480, K=1024, M=2048: keyframes with depth mining and
                BA (use_depth, CG-12 x 10 LM) on B4/B5; ATE, failures,
@@ -23,7 +28,8 @@ Phases, each raising on failure:
   7. ransac    one frame tracked from a prior ~0.3 m / 10 deg off
   8. timing    each kernel beside its plain version at the path's shapes,
                and its bound; B1/B2 also by queued events, beside a copy
-               floor for B1's bytes; B3 beside one PyTorch gather
+               floor for B1's bytes; B3 beside one PyTorch gather; B1 and
+               B3 on stacks of B=1, 4 and 8 frames beside B single launches
   9. profile   device time per tracked frame, by kernel (torch.profiler)
  10. B4/B5     segment reduce/expand kernels vs their plain versions at
                BASELINE.json config-#5 shapes, at ragged shapes with
@@ -45,9 +51,11 @@ Phases, each raising on failure:
  15. monocular the SLAM loop on every 2nd frame, 90 frames at 640x480:
                two-view init (512 essential hypotheses), triangulated
                mining, BA; init frame, keyframes, applied BAs, failures,
-               Sim3 ATE, every kernel's launch count, times
+               Sim3 ATE, every kernel's launch count, times; then once more
+               with homography-vs-essential model selection
  16. init/mine init_step and mine_step on the card vs the port's CPU path
-               on the same features and the same minimal sets
+               on the same features and the same minimal sets; init_step
+               with model selection on a planar and a general scene
  17. pose graph  optimize and optimize_sim3 on the card vs the port's CPU
                path, SE3 and Sim3, on the 5,000-keyframe graph of the JAX
                package's tests (the CPU and card tests cover the small
@@ -66,6 +74,12 @@ Phases, each raising on failure:
                outcome, ATE, failures, keyframes, BAs, launches, the kf_loop
                timer, frames/s; at least one closure accepted, 0 failures,
                ATE < 0.02 m; a second card run bit-equal
+ 21. batched   config #3: multi.run_batched over 4 distinct 60-frame RGB-D
+               windows of phase 20's frames at 640x480, K=1024, M=2048:
+               each sequence's history and poses equal its own
+               run_sequence's, the sequences differ, each ATE < 0.02 m with
+               0 failures, B1 and B3 launched once a step; frames/s beside
+               the four single runs'
 
 Prints the kernels' JSON line, then, as the last line,
 {"ok": true, "device": {...}}. Exits non-zero with no result line when
@@ -115,6 +129,10 @@ CONFIG5 = dict(K=5000, P=1 << 20, Q=4, n_iters=5, cg_iters=8, lm_lambda=1e-2)
 # ~100 m chain; the chain's own noise is 0.02 m).
 PG_R_ATOL, PG_T_ATOL, PG_LAM_ATOL = 1e-4, 1e-3, 1e-4
 REVISIT_FRAMES = 480  # the turn at ~0.83 deg a frame: the prior-seeded PnP's reach at 640x480
+# Config #3 (phase 21): windows of phase 20's frames, (offset, reversed).
+BATCH_WINDOWS, BATCH_LENGTH = ((0, False), (120, True), (240, False), (360, False)), 60
+# Stacks for the batched B1/B3 checks (phases 3 and 4): (B, (H, W)).
+BATCH_CASES = ((4, (480, 640)), (3, (37, 600)), (3, (45, 70)))
 RENDER_THREADS = 6
 
 
@@ -531,9 +549,32 @@ def reproj_px(Xa, Xb, poses, intr, mask) -> float:
                      .norm(dim=-1)[mask].max()) for R, t in poses)
 
 
-def mono_phases(dev, smi) -> None:
-    """Phases 15-16: the monocular SLAM loop, and init_step / mine_step on
-    the card against the port's CPU path."""
+def two_view_features(planar: bool, rng, intr, n_pts=300):
+    """Features of two views of n_pts points, on the plane z = 4 (as
+    tests/test_homography.py:planar_scene builds it) or with depths spread
+    over [2, 8] m, with 0.3 px noise. Each point is one feature, with the
+    same random descriptor in both views, so matching pairs them."""
+    from visual_slam_tpu_torch.models.frontend import Features
+    from visual_slam_tpu_torch.ops import lie
+
+    X = np.stack([rng.uniform(-2, 2, n_pts), rng.uniform(-1.5, 1.5, n_pts),
+                  np.full(n_pts, 4.0) if planar else rng.uniform(2.0, 8.0, n_pts)], -1)
+    R = lie.so3_exp(torch.tensor([0.05, -0.08, 0.02])).double().numpy()
+    X2 = X @ R.T + np.array([0.4, -0.15, 0.25])
+    fx, fy, cx, cy = np.asarray(intr, np.float64)
+    desc = torch.from_numpy(rng.integers(-2**31, 2**31, (n_pts, 8)).astype(np.int32))
+    feats = []
+    for P in (X, X2):
+        uv = np.stack([fx * P[:, 0] / P[:, 2] + cx, fy * P[:, 1] / P[:, 2] + cy], -1)
+        uv = torch.from_numpy((uv + rng.normal(scale=0.3, size=uv.shape)).astype(np.float32))
+        feats.append(Features(uv=uv, desc=desc, score=torch.ones(n_pts), valid=torch.ones(n_pts, dtype=torch.bool)))
+    return feats
+
+
+def mono_phases(dev, smi) -> dict:
+    """Phases 15-16: the monocular SLAM loop, once with model selection,
+    and init_step / mine_step on the card against the port's CPU path.
+    Returns each run's launches."""
     from visual_slam_tpu_torch.config import SlamConfig
     from visual_slam_tpu_torch.models import frontend
     from visual_slam_tpu_torch.ops import match, ransac
@@ -573,6 +614,23 @@ def mono_phases(dev, smi) -> None:
         f"{ate:.6f} -> {ate_final:.6f} m; {smi}")
     if st["final_pass"] not in ("smooth", "reverted") or not np.isfinite(ate_final):
         raise AssertionError(f"mono: final pass {st['final_pass']}, ATE {ate_final}")
+    # The same frames with homography-vs-essential model selection at init
+    # (TwoViewConfig.use_model_selection; the JAX package's CPU Slam and the
+    # port's pick the homography at the box room's half-size init pair).
+    cfg_ms = SlamConfig()
+    cfg_ms.twoview.use_model_selection = True
+    slam_ms, wall_ms, launches_ms = run_slam(frames, cfg_ms, dev)
+    idxs, est = slam_ms.positions()
+    ate_ms, _ = ate_rmse(est, scene.ground_truth()[idxs, :3, 3], align_scale=True)
+    n_ba_ms = check_slam_launches("mono model selection", slam_ms, MONO_FRAMES, launches_ms)
+    slam_report("mono model selection", slam_ms, MONO_FRAMES, wall_ms, launches_ms, n_ba_ms, ate_ms, smi)
+    sm = slam_ms.stats
+    log(f"[mono model selection] accepted init at frame {sm['init_frame']} chose the {sm['init_model']} "
+        f"({sm['init_rollbacks']} rollbacks, {sm['init_reverify_rejects']} re-verification rejects); "
+        f"without selection: frame {st['init_frame']}, the {st['init_model']}")
+    if sm["init_frame"] is None or sm["track_failures"] != 0 or not ate_ms < ATE_LIMIT_M:
+        raise AssertionError(f"mono model selection: init {sm['init_frame']}, {sm['track_failures']} track "
+                             f"failures, Sim3 ATE {ate_ms} m")
 
     # 16. init_step and mine_step on the card vs the CPU: the same CPU
     #     features, the same minimal sets
@@ -634,6 +692,34 @@ def mono_phases(dev, smi) -> None:
     for name, (ms, dev_ms, syncs) in cost.items():
         log(f"[init/mine] {name}: {ms:.3f} ms per call, {dev_ms:.3f} ms device, {syncs} host "
             f"syncs per call; {smi}")
+    # init_step with homography-vs-essential model selection, card vs CPU,
+    # the same essential and homography minimal sets: a planar scene (the
+    # homography wins) and a general one (the essential matrix wins).
+    rng = np.random.default_rng(16)
+    kw_ms = {**kw, "min_flow_px": 0.0, "model_selection": True}  # the flow floor is not under test
+    for planar in (True, False):
+        f0, f1 = two_view_features(planar, rng, cfg.intrinsics)
+        _, _, good = match.match_ratio_test(f0.desc, f1.desc, f0.valid, f1.valid, ratio=fq.match_ratio,
+                                            max_distance=fq.max_hamming)
+        g = torch.Generator().manual_seed(int(planar))
+        idx_e, idx_h = (ransac.sample_minimal_sets(g, 512, k, good) for k in (8, 4))
+        ic = init_step(f0, f1, intr, **kw_ms, ransac_idx=idx_e, homography_idx=idx_h)
+        sel = lambda: init_step(*(frontend.Features(*(a.to(dev) for a in f)) for f in (f0, f1)),  # noqa: E731
+                                intr_dev, **kw_ms, ransac_idx=idx_e.to(dev), homography_idx=idx_h.to(dev))
+        ig = sel()
+        name = "planar" if planar else "general"
+        if bool(ig.used_H) != bool(ic.used_H) or bool(ic.used_H) != planar:
+            raise AssertionError(f"init_step model selection, {name}: used_H card {bool(ig.used_H)}, "
+                                 f"CPU {bool(ic.used_H)}")
+        torch.testing.assert_close(ig.R.cpu(), ic.R, rtol=0, atol=GEOM_POSE_ATOL)
+        torch.testing.assert_close(ig.t.cpu(), ic.t, rtol=0, atol=GEOM_POSE_ATOL)
+        r_err = float((ig.R.cpu() - ic.R).abs().max())
+        t_err = float((ig.t.cpu() - ic.t).abs().max())
+        log(f"[init/mine] init_step model selection, {name} scene ({int(ic.n_matches)} matches): the "
+            f"{'homography' if planar else 'essential matrix'} on card and CPU, frac {float(ic.frac):.4f}, "
+            f"R within {r_err:.3g}, t within {t_err:.3g} (bar {GEOM_POSE_ATOL}); "
+            f"{cuda_ms(sel, iters=5, warmup=1):.3f} ms per call; {smi}")
+    return {"mono": launches, "mono_model_selection": launches_ms}
 
 
 def sim3_of(g):
@@ -701,15 +787,25 @@ def pg_phase(dev, smi) -> None:
         bars = [PG_R_ATOL, PG_T_ATOL, PG_LAM_ATOL][:len(err)]
         if not all(np.isfinite(e) and e <= b for e, b in zip(err, bars)):
             raise AssertionError(f"pose graph {name}: card vs CPU max errors {err}, bars {bars}")
-        rows = profile_rows(lambda: fn(g_dev, **kw))
         # Indexing kernels (index_add_, index_select, gathers, scatters): the
         # reduce plan's integer bookkeeping launches a few a call; a GN step
         # and a CG iteration launch none, so one GN step of one CG iteration
-        # launches as many as the whole solve.
-        one = profile_rows(lambda: fn(g_dev, n_iters=1, cg_iters=1))
-        indexing = {k: c for k, _, c in rows if INDEXING.search(k)}
-        if indexing != {k: c for k, _, c in one if INDEXING.search(k)}:
-            raise AssertionError(f"pose graph {name}: indexing kernels in the GN/CG loop: {indexing}")
+        # launches as many as the whole solve. Every call launches the same
+        # kernels, so an indexing launch in the loop shows in every pair of
+        # profiles; a pair that disagrees once and then agrees lost events
+        # in the profiler and is taken again.
+        for attempt in range(3):
+            rows = profile_rows(lambda: fn(g_dev, **kw))
+            one = profile_rows(lambda: fn(g_dev, n_iters=1, cg_iters=1))
+            indexing = {k: c for k, _, c in rows if INDEXING.search(k)}
+            one_indexing = {k: c for k, _, c in one if INDEXING.search(k)}
+            if indexing == one_indexing:
+                break
+            log(f"[pose graph] {name}: profile pair {attempt + 1} disagrees on indexing kernels "
+                f"(solve {indexing}, one step {one_indexing}); taking it again")
+        else:
+            raise AssertionError(f"pose graph {name}: indexing kernels in the GN/CG loop: {indexing}, "
+                                 f"one GN step of one CG iteration: {one_indexing}")
         dev_ms = sum(r[1] for r in rows) / 1e3
         seg_ms = sum(r[1] for r in rows if "vslam_" in r[0] or "cam_" in r[0]) / 1e3
         K, N = g_cpu.R.shape[0], 2 * g_cpu.e_i.shape[0] + (2 * g_cpu.s_i.shape[0] if fn is pg.optimize else 0)
@@ -860,6 +956,79 @@ def revisit_phase(dev, smi, frames) -> dict:
     return launches
 
 
+def batched_phase(dev, smi, frames) -> dict:
+    """Phase 21, config #3: run_batched over 4 distinct windows of the
+    revisit frames, each held to its own run_sequence on the card."""
+    from visual_slam_tpu_torch.config import SlamConfig
+    from visual_slam_tpu_torch.multi import run_batched
+    from visual_slam_tpu_torch.pipeline import run_sequence
+    from visual_slam_tpu_torch.utils.dataset import WindowView
+    from visual_slam_tpu_torch.utils.evaluate import ate_rmse
+    from visual_slam_tpu_torch.utils.scene import FrameSequence, SyntheticRGBDScene
+
+    gt = SyntheticRGBDScene(REVISIT_FRAMES, trajectory="revisit").ground_truth()
+    base = FrameSequence(frames, gt)
+    views = [WindowView(base, off, length=BATCH_LENGTH, reverse=rev) for off, rev in BATCH_WINDOWS]
+    cfg = SlamConfig(use_depth=True)
+    torch.cuda.synchronize()
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    slams = run_batched(views, cfg, device=dev)
+    torch.cuda.synchronize()
+    wall, launches = time.perf_counter() - t0, kernel_counts()
+    singles = []
+    for view in views:
+        t0 = time.perf_counter()
+        single = run_sequence(view, cfg, device=dev)
+        torch.cuda.synchronize()
+        singles.append((single, time.perf_counter() - t0))
+    n_ba = n_pg = n_warp = 0
+    centres = []
+    for b, (view, slam, (single, single_wall)) in enumerate(zip(views, slams, singles)):
+        st = dict(slam.stats)
+        if st.pop("frontend_devices") != 1:
+            raise AssertionError(f"batched: sequence {b} ran its front-end on more than one card")
+        same = (st == single.stats and len(slam.trajectory) == len(single.trajectory)
+                and all((a.frame_idx, a.is_keyframe, a.n_tracked) == (c.frame_idx, c.is_keyframe, c.n_tracked)
+                        and np.array_equal(a.R_cw, c.R_cw) and np.array_equal(a.t_cw, c.t_cw)
+                        for a, c in zip(slam.trajectory, single.trajectory))
+                and np.array_equal(slam.map.pt_xyz, single.map.pt_xyz))
+        if not same:
+            raise AssertionError(f"batched: sequence {b} differs from its own run_sequence")
+        idxs, est = slam.positions()
+        ate, _ = ate_rmse(est, view.ground_truth()[idxs, :3, 3], align_scale=False)
+        kfs = [f.frame_idx for f in slam.trajectory if f.is_keyframe]
+        log(f"[batched] sequence {b} (offset {view.offset}, reversed {view.reverse}): ATE {ate:.6f} m, "
+            f"{st['track_failures']} track failures, init frame {st['init_frame']}, keyframes at {kfs}, "
+            f"{st['ba_runs']} BAs applied, {st['loop_closures']} closures; history, stats, poses and "
+            f"landmarks bit-equal to its run_sequence ({BATCH_LENGTH / single_wall:.2f} frames/s alone)")
+        if len(idxs) != BATCH_LENGTH or st["track_failures"] != 0 or not ate < ATE_LIMIT_M:
+            raise AssertionError(f"batched: sequence {b}: {len(idxs)} poses, {st['track_failures']} "
+                                 f"failures, ATE {ate} m")
+        n_ba += (st["ba_runs"] + st["ba_dropped_stale"] + st["ba_rejected"] + st["ba_discarded_loop"]
+                 + (slam._pending_ba is not None))
+        n_pg += st["loop_closures"] + st["loop_rejected_unsatisfied"] + st["loop_rejected_warp"]
+        n_warp += st["loop_closures"] + st["loop_rejected_warp"]
+        centres.append(est)
+    apart = min(np.abs(centres[a] - centres[b]).max() for a in range(4) for b in range(a + 1, 4))
+    if not apart > 1e-3:
+        raise AssertionError(f"batched: two sequences' camera centres are only {apart} m apart")
+    it, pg_calls = cfg.ba.iters, cfg.loop.pgo_iters * 33
+    want = {"detect_blur": BATCH_LENGTH, "patch": BATCH_LENGTH,
+            "cam_reduce": it * n_ba + pg_calls * n_pg,
+            "cam_expand": (2 * it + 3) * n_ba + pg_calls * n_pg + 2 * n_warp}
+    if launches != want:
+        raise AssertionError(f"batched: launches {launches}, expected {want}")
+    n_all = len(views) * BATCH_LENGTH
+    single_fps = [BATCH_LENGTH / w for _, w in singles]
+    H, W = frames[0][1].shape
+    log(f"[batched] {len(views)} sequences x {BATCH_LENGTH} frames at {W}x{H}: {n_all / wall:.2f} frames/s "
+        f"aggregate ({wall:.3f} s wall) vs single runs {', '.join(f'{f:.2f}' for f in single_fps)} frames/s "
+        f"({n_all / sum(w for _, w in singles):.2f} aggregate in turn); camera centres of two sequences "
+        f">= {apart:.4f} m apart; launches {launches} ({n_ba} BA steps); {smi}")
+    return launches
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -878,6 +1047,13 @@ def main() -> int:
     from visual_slam_tpu_torch.pipeline import Slam, ba_step, run_sequence, track_step
     from visual_slam_tpu_torch.utils.evaluate import ate_rmse
     from visual_slam_tpu_torch.utils.scene import SyntheticRGBDScene
+    from visual_slam_tpu_torch import native
+
+    # The native PNG loader is host IO, off the card's path: information only.
+    t0 = time.perf_counter()
+    native_ok = native.available()
+    log(f"[device] native PNG loader {'available' if native_ok else 'unavailable'} after "
+        f"{time.perf_counter() - t0:.2f} s" + ("" if native_ok else f": {native.build_error}"))
 
     # 2. build
     t0 = time.perf_counter()
@@ -911,6 +1087,24 @@ def main() -> int:
             log(f"[B1] {name} border {border}: {int(fin.sum())} finite peaks; peaks, blur and the "
                 f"B2 mode bit-equal to the plain version")
 
+    # B1 on stacks: one launch over B images, bit-equal to the plain version
+    # on the stack and to B single launches; the stacks' ragged sizes put
+    # tile edges inside every image.
+    for B, (h, w) in BATCH_CASES:
+        stack = torch.from_numpy(np.stack([uniform_noise(h, w, h + w + b) for b in range(B)])).to(dev)
+        for border in (16, 0):
+            pk, bk = detect_kernel.corner_peaks_and_blur(stack, border=border)
+            pp, bp = detect_kernel.corner_peaks_and_blur_torch(stack, border=border)
+            p2 = detect_kernel.corner_peaks(stack, border=border)
+            singles = [detect_kernel.corner_peaks_and_blur(stack[b], border=border) for b in range(B)]
+            torch.cuda.synchronize()
+            if not (torch.equal(pk, pp) and torch.equal(bk, bp) and torch.equal(p2, pp)
+                    and all(torch.equal(pk[b], p) and torch.equal(bk[b], q) for b, (p, q) in enumerate(singles))):
+                raise AssertionError(f"B1 stack of {B} at {h}x{w} border {border}: not bit-equal to the plain "
+                                     f"version and to {B} single launches")
+        log(f"[B1] stack of {B} at {h}x{w}, border 16 and 0: one launch, peaks, blur and the B2 mode "
+            f"bit-equal to the plain version and to {B} single launches")
+
     # B1's branch-free square root against CUDA's IEEE one, every float
     bad, first = detect_kernel.sqrt_check(dev)
     if bad:
@@ -927,6 +1121,18 @@ def main() -> int:
         raise AssertionError("B3: patches differ from the plain version")
     b3_err = (pk - pp).abs().max().item()
     log(f"[B3] K=1024 (8 edge-clamped) bit-equal: max_abs_err {b3_err}")
+    for B, (h, w) in BATCH_CASES:
+        stack = torch.from_numpy(np.stack([uniform_noise(h, w, h + w + b) for b in range(B)])).to(dev)
+        uvs = torch.from_numpy(np.stack([edge_keypoints(h, w, 1024, seed=b) for b in range(B)])).to(dev)
+        pk = patch_kernel.extract_patches(stack, uvs)
+        pp = patch_kernel.extract_patches_torch(stack, uvs)
+        singles = [patch_kernel.extract_patches(stack[b], uvs[b]) for b in range(B)]
+        torch.cuda.synchronize()
+        if not (torch.equal(pk, pp) and all(torch.equal(pk[b], q) for b, q in enumerate(singles))):
+            raise AssertionError(f"B3 stack of {B} at {h}x{w}: not bit-equal to the plain version and "
+                                 f"to {B} single launches")
+        log(f"[B3] stack of {B} at {h}x{w}, K=1024: one launch bit-equal to the plain version and to "
+            f"{B} single launches")
 
     # 5. front-end on the card vs the port's CPU path, same frame
     scene = SyntheticRGBDScene(FRAMES)
@@ -943,6 +1149,20 @@ def main() -> int:
         raise AssertionError(f"front-end: descriptor bit agreement {agree}")
     log(f"[frontend] uv/valid equal, score within rtol {PEAK_RTOL}, "
         f"{int(v.sum())} valid, descriptor bits equal {agree:.6f}")
+    # The batched front-end: one B1 and one B3 launch for 4 frames, each
+    # frame's features bit-equal to its own extract on the card.
+    stack = torch.from_numpy(np.stack([rendered[i][1] for i in (0, 20, 40, 59)])).to(dev)
+    n1, n3 = detect_kernel.launches, patch_kernel.launches
+    fb = frontend.extract_batch(stack, 1024)
+    torch.cuda.synchronize()
+    if (detect_kernel.launches - n1, patch_kernel.launches - n3) != (1, 1):
+        raise AssertionError("extract_batch: not one B1 and one B3 launch for the stack")
+    for b in range(4):
+        f1 = frontend.extract(stack[b], 1024)
+        if not all(torch.equal(getattr(fb, k)[b], getattr(f1, k)) for k in f1._fields):
+            raise AssertionError(f"extract_batch: frame {b} differs from its single extract")
+    log("[frontend] extract_batch over 4 frames: one B1 and one B3 launch, each frame's uv, desc, "
+        "score and valid bit-equal to its single extract")
 
     # 6. the RGB-D SLAM loop at full width on the card
     cfg = SlamConfig(use_depth=True)
@@ -1111,6 +1331,34 @@ def main() -> int:
               "B3": bound_ms(4 * (H * W + 2 * K3 + 32 * 32 * K3), 0)}
     for name, (b, by) in bounds.items():
         log(f"[timing] {name}: bound {b:.5f} ms ({by}); kernel at {b / times[name][0]:.3f} of it")
+    # B1 and B3 on stacks of B frames (config #3's one launch a step)
+    # beside B single launches, in turns (stack, singles, singles, stack):
+    # device time by queued events, which count the gaps between launches
+    # that the stack saves and cannot drop a launch (a profiler window read
+    # B3 at B=4 as 0.0001 ms on an H100), and by the profiler beside it; the
+    # bound is B times one frame's.
+    batch_times = {}
+    for B in (1, 4, 8):
+        stack = torch.from_numpy(np.stack([rendered[i][1] for i in range(B)])).to(dev)
+        _, blur_stack = detect_kernel.corner_peaks_and_blur(stack)
+        uv_stack = frontend.extract_batch(stack, 1024).uv
+        pairs = {
+            "B1": (lambda: detect_kernel.corner_peaks_and_blur(stack),
+                   lambda: [detect_kernel.corner_peaks_and_blur(stack[b]) for b in range(B)]),
+            "B3": (lambda: patch_kernel.extract_patches(blur_stack, uv_stack),
+                   lambda: [patch_kernel.extract_patches(blur_stack[b], uv_stack[b]) for b in range(B)]),
+        }
+        for name, (one, singles) in pairs.items():
+            d = [device_ms(f)[0] for f in (one, singles, singles, one)]
+            q = [queued_ms(f) for f in (one, singles, singles, one)]
+            b, by = bounds[name]
+            row = dict(B=B, ms=min(q[0], q[3]), singles_ms=min(q[1], q[2]), profiler_ms=min(d[0], d[3]),
+                       singles_profiler_ms=min(d[1], d[2]), bound_ms=B * b, bound_by=by)
+            batch_times.setdefault(name, []).append(row)
+            log(f"[timing] {name} stack of {B} at {H}x{W}, K={K3}: one launch {row['ms']:.4f} ms "
+                f"({row['ms'] / B:.4f} ms an image), {B} single launches {row['singles_ms']:.4f} ms (queued "
+                f"events); profiler {row['profiler_ms']:.4f} vs {row['singles_profiler_ms']:.4f} ms; bound "
+                f"{row['bound_ms']:.5f} ms ({by}), the launch at {row['bound_ms'] / row['ms']:.3f} of it; {smi}")
 
     # 9. where a tracked frame's time goes: device kernels by name
     pslam = Slam(cfg, device=dev)
@@ -1132,7 +1380,7 @@ def main() -> int:
         log(f"[profile]   {us / 1e3 / n_prof:8.4f} ms/frame {count / n_prof:6.1f}/frame  {key[:90]}")
 
     seg_times = seg_phases(dev, smi)
-    mono_phases(dev, smi)
+    mono_launches = mono_phases(dev, smi)
     lap = [time.perf_counter()]
     for phase in (pg_phase, score_phase, close_loop_phase):
         phase(dev, smi)
@@ -1141,22 +1389,29 @@ def main() -> int:
     lap.append(time.perf_counter())
     revisit_launches = revisit_phase(dev, smi, frames)
     lap.append(time.perf_counter())
+    batched_launches = batched_phase(dev, smi, frames)
+    lap.append(time.perf_counter())
     secs = np.diff(lap)
-    log(f"[loop] phases 17-20 took {lap[-1] - lap[0]:.1f} s: pose graph {secs[0]:.1f}, scoring "
+    log(f"[loop] phases 17-21 took {lap[-1] - lap[0]:.1f} s: pose graph {secs[0]:.1f}, scoring "
         f"{secs[1]:.1f}, close loop {secs[2]:.1f}, rendering {REVISIT_FRAMES} frames in {RENDER_THREADS} "
-        f"threads {secs[3]:.1f}, two revisit runs {secs[4]:.1f}; revisit launches {revisit_launches}")
+        f"threads {secs[3]:.1f}, two revisit runs {secs[4]:.1f}, config #3 {secs[5]:.1f}; revisit "
+        f"launches {revisit_launches}")
+    # Each path's launches, its counts set to 0 just before it: phase 6
+    # (`launches` below), 15 (twice), 20 (one of its two runs) and 21.
+    by_path = {"rgbd_60": launches, **mono_launches, "revisit_480": revisit_launches,
+               "batched_4x60": batched_launches}
 
     kernels = [
         dict(name="detect_blur", route="cuda", source="visual_slam_tpu_torch/csrc/detect_blur.cu",
              replaces="visual_slam_tpu/ops/pallas/detect_kernel.py:123",
              launches=launches["detect_blur"], max_abs_err=b1_err,
              ms=times["B1"][0], plain_ms=times["B1"][1], bound_ms=bounds["B1"][0],
-             bound_by=bounds["B1"][1], library_ms=None),
+             bound_by=bounds["B1"][1], library_ms=None, batched=batch_times["B1"]),
         dict(name="patch", route="cuda", source="visual_slam_tpu_torch/csrc/patch.cu",
              replaces="visual_slam_tpu/ops/pallas/patch_kernel.py:32",
              launches=launches["patch"], max_abs_err=b3_err,
              ms=times["B3"][0], plain_ms=times["B3"][1], bound_ms=bounds["B3"][0],
-             bound_by=bounds["B3"][1], library_ms=b3_library_ms),
+             bound_by=bounds["B3"][1], library_ms=b3_library_ms, batched=batch_times["B3"]),
         dict(name="cam_reduce", route="cuda", source="visual_slam_tpu_torch/csrc/seg.cu",
              replaces="visual_slam_tpu/ops/pallas/seg_kernel.py:55",
              launches=launches["cam_reduce"], max_abs_err=path_err["cam_reduce"],
@@ -1170,6 +1425,8 @@ def main() -> int:
              bound_ms=path_bounds["B5"][0], bound_by=path_bounds["B5"][1],
              library_ms=path_times["B5"][2]),
     ]
+    for k in kernels:
+        k["launches_by_path"] = {path: counts[k["name"]] for path, counts in by_path.items()}
     for (name, C, N, K, ids), (kms, pms, lms, (b, by)) in seg_times.items():
         log(f"[kernels] {name} at C={C}, N={N}, K={K} ({ids} ids): {kms:.4f} ms, plain {pms:.4f} ms, "
             f"library {lms:.4f} ms, bound {b:.4f} ms ({by}): {b / kms:.3f} of the bound")

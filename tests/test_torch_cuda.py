@@ -453,3 +453,91 @@ def test_close_loop_card_matches_cpu(cuda):
         [sorted(d.items()) for d in c.slam.stats["loop_accepted"]]
     np.testing.assert_allclose(g.slam.map.kf_R, c.slam.map.kf_R, atol=PG_R_ATOL)
     np.testing.assert_allclose(g.slam.map.kf_t, c.slam.map.kf_t, atol=PG_T_ATOL)
+
+
+BATCH_SIZES = [(480, 640), *RAGGED_SIZES[2:4]]  # 480x640, 45x70, 37x600
+
+
+@pytest.mark.parametrize("B", [1, 3, 4])
+@pytest.mark.parametrize("hw", BATCH_SIZES, ids=lambda hw: f"{hw[0]}x{hw[1]}")
+def test_batched_kernels_match_plain_and_single(cuda, hw, B):
+    """B1 (peaks, blur, B2 mode) and B3 on a (B,H,W) stack: one launch
+    each, bit-equal to the batched plain version and to B single-image
+    launches, at 480x640 and at ragged sizes (tile edges inside every
+    image of the stack)."""
+    h, w = hw
+    border = 16 if min(h, w) > 32 else 0
+    imgs = torch.from_numpy(np.stack([uniform_noise(h, w, seed=h + w + s) for s in range(B)])).to(cuda)
+    uv = torch.from_numpy(np.stack([edge_keypoints(h, w, 1024, seed=s) for s in range(B)])).to(cuda)
+    n1, n3 = detect_kernel.launches, patch_kernel.launches
+    pk, bk = detect_kernel.corner_peaks_and_blur(imgs, border=border)
+    patches = patch_kernel.extract_patches(imgs, uv)
+    assert (detect_kernel.launches, patch_kernel.launches) == (n1 + 1, n3 + 1)
+    p2 = detect_kernel.corner_peaks(imgs, border=border)
+    pp, bp = detect_kernel.corner_peaks_and_blur_torch(imgs, border=border)
+    torch.cuda.synchronize()
+    assert torch.equal(pk, pp) and torch.equal(bk, bp) and torch.equal(p2, pp)
+    assert torch.equal(patches, patch_kernel.extract_patches_torch(imgs, uv))
+    for b in range(B):
+        p1, b1 = detect_kernel.corner_peaks_and_blur(imgs[b], border=border)
+        assert torch.equal(pk[b], p1) and torch.equal(bk[b], b1)
+        assert torch.equal(patches[b], patch_kernel.extract_patches(imgs[b], uv[b]))
+
+
+def test_batched_wrappers_raise_instead_of_falling_back(cuda):
+    """Stacks the batched kernels do not take raise: CPU/CUDA mixes, wrong
+    ranks, keypoints of another batch size, an empty stack."""
+    imgs = torch.zeros((2, 64, 64), device=cuda)
+    for bad in (torch.zeros((2, 8, 2)), torch.zeros((8, 2), device=cuda),
+                torch.zeros((3, 8, 2), device=cuda)):
+        with pytest.raises(ValueError):
+            patch_kernel.extract_patches(imgs, bad)
+    with pytest.raises(ValueError):
+        patch_kernel.extract_patches(imgs.cpu(), torch.zeros((2, 8, 2), device=cuda))
+    with pytest.raises(ValueError):
+        detect_kernel.corner_peaks_and_blur(torch.zeros((1, 2, 64, 64), device=cuda))
+    with pytest.raises(ValueError):
+        detect_kernel.corner_peaks_and_blur(torch.zeros((0, 64, 64), device=cuda))
+
+
+def test_extract_batch_card_equals_single_extract(cuda):
+    """extract_batch on a (4,480,640) stack on the card: one B1 and one B3
+    launch, and each image's features equal to its own extract on the card,
+    bit for bit."""
+    imgs = torch.from_numpy(np.stack([smooth_noise(480, 640, seed=s) for s in range(3)]
+                                     + [checkerboard()])).to(cuda)
+    n1, n3 = detect_kernel.launches, patch_kernel.launches
+    fb = frontend.extract_batch(imgs, 1024)
+    torch.cuda.synchronize()
+    assert (detect_kernel.launches, patch_kernel.launches) == (n1 + 1, n3 + 1)
+    for b in range(4):
+        f = frontend.extract(imgs[b], 1024)
+        for name in f._fields:
+            assert torch.equal(getattr(fb, name)[b], getattr(f, name)), (b, name)
+
+
+def test_run_batched_card_equals_run_sequence(cuda):
+    """run_batched over two distinct RGB-D windows of the half-size scene
+    on the card: each sequence's trajectory, stats and landmarks equal its
+    own run_sequence on the card bit for bit."""
+    from visual_slam_tpu_torch.multi import run_batched
+    from visual_slam_tpu_torch.utils.dataset import WindowView
+    from visual_slam_tpu_torch.utils.scene import FrameSequence
+
+    intr = np.array([240.6, 240.0, 159.75, 119.75], np.float32)
+    scene = SyntheticRGBDScene(60, 240, 320, intrinsics=intr)
+    base = FrameSequence(list(scene.frames()), scene.ground_truth())
+    views = [WindowView(base, 0, length=30), WindowView(base, 20, length=30, reverse=True)]
+    cfg = SlamConfig(use_depth=True, intrinsics=intr)
+    cfg.frontend.max_features = 256
+    cfg.map.track_capacity = 512
+    slams = run_batched(views, cfg, device=cuda)
+    for view, slam in zip(views, slams):
+        single = run_sequence(view, cfg, device=cuda)
+        assert slam.stats.pop("frontend_devices") == 1
+        assert slam.stats == single.stats and slam.stats["ba_runs"] >= 1
+        assert len(slam.trajectory) == len(single.trajectory)
+        for a, b in zip(slam.trajectory, single.trajectory):
+            assert (a.frame_idx, a.is_keyframe, a.n_tracked) == (b.frame_idx, b.is_keyframe, b.n_tracked)
+            assert np.array_equal(a.R_cw, b.R_cw) and np.array_equal(a.t_cw, b.t_cw)
+        assert np.array_equal(slam.map.pt_xyz, single.map.pt_xyz)

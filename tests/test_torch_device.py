@@ -7,8 +7,9 @@ import torch
 
 from torch_parity import ICL_INTR
 
+from visual_slam_tpu_torch import multi
 from visual_slam_tpu_torch.config import MapConfig, SlamConfig
-from visual_slam_tpu_torch.models import ba
+from visual_slam_tpu_torch.models import ba, frontend
 from visual_slam_tpu_torch.models.map_state import SlamMap
 from visual_slam_tpu_torch.pipeline import Slam, run_sequence
 from visual_slam_tpu_torch.utils import synthetic
@@ -34,6 +35,9 @@ ENTRY_POINTS = {
     "to_ba_problem": lambda: SlamMap(MapConfig()).to_ba_problem(ICL_INTR),
     "build_loop_map": lambda: synthetic.build_loop_map(16, 64, 4),
     "arc_problem": lambda: synthetic.arc_problem(3, 20),
+    "extract_batch": lambda: frontend.extract_batch(np.zeros((2, 48, 64), np.float32)),
+    "run_batched": lambda: multi.run_batched([SyntheticRGBDScene(2, 48, 64)] * 2,
+                                             SlamConfig(use_depth=True)),
 }
 
 

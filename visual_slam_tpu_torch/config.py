@@ -4,8 +4,6 @@ The reference hard-codes every constant inline (SURVEY.md §5 "Config / flag
 system: none"); this module gathers them, with the reference values and
 their file:line provenance as defaults (visual_slam_tpu/config.py:17-141),
 and `size_config_for` (visual_slam_tpu/pipeline.py:2380-2400).
-Homography-vs-essential init (`TwoViewConfig.use_model_selection`, off by
-default there) is not ported.
 """
 from __future__ import annotations
 
@@ -31,6 +29,7 @@ class FrontendConfig:
 class TwoViewConfig:
     ess_threshold_factor: float = 3.0  # essTh = 3.0/fx (main.py:103)
     ransac_hypotheses: int = 512
+    use_model_selection: bool = False  # homography-vs-essential init (v1 slam_test.py:207-218)
     min_matches: int = 100  # skip-frame gate (main.py:97-98)
     min_valid_fraction: float = 0.9  # cheirality gate (main.py:113-114)
     distance_thresh: float = 50.0  # recoverPose distanceThresh (helper_functions.py:176)

@@ -8,6 +8,11 @@
 // exact patch: rows of the image starting at floor(uv) - 15, clamped to
 // [0, W-32] x [0, H-32].
 //
+// The JAX package vmaps the pallas_call over a (B, H, W) stack in its
+// batched front-end; here one launch covers the stack: B*K blocks, block i
+// copying keypoint i % K of image i / K (the (B, K, 2) keypoints and the
+// (B, K, 32, 32) patches are flat in the same order). One image is B = 1.
+//
 // What bounds it: launch latency. K=1024 patches are 4 MB written and at
 // most as much read (~2.5 us of device-memory time at 3.35 TB/s). One block
 // of 32x8 threads per keypoint; each warp copies whole 32-float rows, so
@@ -24,8 +29,9 @@ constexpr int ROWS = 8;  // warps per block
 
 __global__ void __launch_bounds__(PATCH * ROWS)
 patch_kernel(const float* __restrict__ img, const float* __restrict__ uv,
-             float* __restrict__ out, int H, int W) {
-  const int k = blockIdx.x;
+             float* __restrict__ out, int H, int W, int K) {
+  const int k = blockIdx.x;  // keypoint k % K of image k / K
+  img += static_cast<size_t>(k / K) * H * W;
   // Same float ops as the JAX wrapper: clip(floor(uv) - 15, 0, W-32), then
   // truncate to int.
   const float cxf = fminf(fmaxf(floorf(uv[2 * k]) - (HALF - 1), 0.f),
@@ -40,14 +46,14 @@ patch_kernel(const float* __restrict__ img, const float* __restrict__ uv,
 
 }  // namespace
 
-// Launch on `stream` (a cudaStream_t) of `device`; uv is (K,2) float32,
-// out (K,32,32) float32. Returns cudaGetLastError().
+// Launch on `stream` (a cudaStream_t) of `device`; img is (B,H,W) float32,
+// uv (B,K,2) float32, out (B,K,32,32) float32. Returns cudaGetLastError().
 extern "C" int vslam_patch(const float* img, const float* uv, float* out,
-                           int H, int W, int K, void* stream, int device) {
+                           int B, int H, int W, int K, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (K > 0)
-    patch_kernel<<<K, dim3(PATCH, ROWS), 0, static_cast<cudaStream_t>(stream)>>>(
-        img, uv, out, H, W);
+  if (B > 0 && K > 0)
+    patch_kernel<<<B * K, dim3(PATCH, ROWS), 0, static_cast<cudaStream_t>(stream)>>>(
+        img, uv, out, H, W, K);
   return static_cast<int>(cudaGetLastError());
 }

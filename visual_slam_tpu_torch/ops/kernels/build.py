@@ -36,12 +36,12 @@ NVCC_FLAGS = [
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C entry point -> argtypes. Every entry returns cudaGetLastError().
 _SIGNATURES = {
-    # img, peaks, blur (NULL = no blur), H, W, border, g0..g4, stream, device
-    "vslam_detect_blur": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _P, _I],
+    # img, peaks, blur (NULL = no blur), B, H, W, border, g0..g4, stream, device
+    "vslam_detect_blur": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P, _I],
     # count, first (the exhaustive check of B1's square root), stream, device
     "vslam_detect_sqrt_check": [_P, _P, _P, _I],
-    # img, uv, patches, H, W, K, stream, device
-    "vslam_patch": [_P, _P, _P, _I, _I, _I, _P, _I],
+    # img, uv, patches, B, H, W, K, stream, device
+    "vslam_patch": [_P, _P, _P, _I, _I, _I, _I, _P, _I],
     # data, order, run_start, tile_ptr, words, partial, out, C, N, K, tile,
     # max_runs, stream, device
     "vslam_cam_reduce": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _L, _P, _I],

@@ -6,6 +6,10 @@ the same CUDA kernel, _detect_kernel (corner_peaks_pallas). The CUDA source
 is csrc/detect_blur.cu; its header says what bounds it on the H100 and how
 the tiling answers that.
 
+Every function takes one (H,W) image or a (B,H,W) stack; the kernel covers
+a stack in one launch (the JAX package vmaps its pallas_call in the batched
+front-end), and one image is the B = 1 case of that launch.
+
 `corner_peaks_and_blur_torch` is the plain PyTorch version. It does the
 float operations of the JAX kernel in the same order, which is also the
 CUDA kernel's order, so on the card the two agree bit for bit.
@@ -35,11 +39,12 @@ def blur_weights(radius: int = BLUR_RADIUS, sigma: float = 2.0) -> np.ndarray:
 
 
 def _shift(x: torch.Tensor, dy: int, dx: int, fill: float = 0.0) -> torch.Tensor:
-    """out[y, x] = x[y - dy, x - dx], `fill` where that falls off the image."""
-    H, W = x.shape
+    """out[..., y, x] = x[..., y - dy, x - dx], `fill` where that falls off
+    the image."""
+    H, W = x.shape[-2:]
     out = torch.full_like(x, fill)
-    out[max(dy, 0):H + min(dy, 0), max(dx, 0):W + min(dx, 0)] = (
-        x[max(-dy, 0):H + min(-dy, 0), max(-dx, 0):W + min(-dx, 0)]
+    out[..., max(dy, 0):H + min(dy, 0), max(dx, 0):W + min(dx, 0)] = (
+        x[..., max(-dy, 0):H + min(-dy, 0), max(-dx, 0):W + min(-dx, 0)]
     )
     return out
 
@@ -51,8 +56,9 @@ def _box3(x: torch.Tensor) -> torch.Tensor:
 
 
 def corner_peaks_torch(img: torch.Tensor, nms_radius: int = 3, border: int = 16):
-    """(H,W) float32 -> (H,W) NMS'd min-eigenvalue response (-inf off-peak)."""
-    H, W = img.shape
+    """(H,W) or (B,H,W) float32 -> NMS'd min-eigenvalue response (-inf
+    off-peak), the same shape."""
+    H, W = img.shape[-2:]
     tl, t, tr = _shift(img, 1, 1), _shift(img, 1, 0), _shift(img, 1, -1)
     bl, b, br = _shift(img, -1, 1), _shift(img, -1, 0), _shift(img, -1, -1)
     l, r = _shift(img, 0, 1), _shift(img, 0, -1)
@@ -67,7 +73,7 @@ def corner_peaks_torch(img: torch.Tensor, nms_radius: int = 3, border: int = 16)
     resp = tr_h - det_part
     neg_inf = float("-inf")
     inside = torch.zeros_like(resp, dtype=torch.bool)
-    inside[border:H - border, border:W - border] = True
+    inside[..., border:H - border, border:W - border] = True
     resp = torch.where(inside, resp, neg_inf)
     m = resp
     for d in range(1, nms_radius + 1):
@@ -91,7 +97,7 @@ def gaussian_blur_torch(img: torch.Tensor, radius: int = BLUR_RADIUS, sigma: flo
 
 
 def corner_peaks_and_blur_torch(img, nms_radius=3, border=16, blur_radius=BLUR_RADIUS, blur_sigma=2.0):
-    """Plain version of B1: (H,W) float32 -> (peaks, blurred)."""
+    """Plain version of B1: (H,W) or (B,H,W) float32 -> (peaks, blurred)."""
     return (
         corner_peaks_torch(img, nms_radius, border),
         gaussian_blur_torch(img, blur_radius, blur_sigma),
@@ -104,14 +110,17 @@ def _launch(img: torch.Tensor, nms_radius: int, border: int, with_blur: bool,
     this checkout's library)."""
     if img.device.type != "cuda":
         raise ValueError(f"detect kernel: tensor on {img.device}, not CUDA")
-    if img.dtype != torch.float32 or img.dim() != 2 or not img.is_contiguous():
-        raise ValueError("detect kernel takes a contiguous (H,W) float32 image")
+    if img.dtype != torch.float32 or img.dim() not in (2, 3) or not img.is_contiguous():
+        raise ValueError("detect kernel takes a contiguous (H,W) or (B,H,W) float32 image")
     if nms_radius != NMS_RADIUS or blur_radius != BLUR_RADIUS:
         raise ValueError(
             f"detect kernel is compiled for nms_radius={NMS_RADIUS}, "
             f"blur_radius={BLUR_RADIUS}"
         )
-    H, W = img.shape
+    B = img.shape[0] if img.dim() == 3 else 1
+    H, W = img.shape[-2:]
+    if B * H * W == 0:
+        raise ValueError(f"detect kernel: empty image stack {tuple(img.shape)}")
     lib = lib or build.library()
     peaks = torch.empty_like(img)
     blur = torch.empty_like(img) if with_blur else None
@@ -119,7 +128,7 @@ def _launch(img: torch.Tensor, nms_radius: int, border: int, with_blur: bool,
     stream = torch.cuda.current_stream(img.device).cuda_stream
     err = lib.vslam_detect_blur(
         img.data_ptr(), peaks.data_ptr(), blur.data_ptr() if with_blur else None,
-        H, W, border, *g, stream, img.device.index,
+        B, H, W, border, *g, stream, img.device.index,
     )
     build.check(err, "vslam_detect_blur")
     return peaks, blur
@@ -127,9 +136,11 @@ def _launch(img: torch.Tensor, nms_radius: int, border: int, with_blur: bool,
 
 def corner_peaks_and_blur(img: torch.Tensor, nms_radius: int = 3, border: int = 16,
                           blur_radius: int = BLUR_RADIUS, blur_sigma: float = 2.0):
-    """(H,W) float32 image -> (NMS'd corner peaks, Gaussian-blurred image).
+    """(H,W) float32 image, or a (B,H,W) stack -> (NMS'd corner peaks,
+    Gaussian-blurred image), each the input's shape.
 
-    CPU tensor: the plain version. CUDA tensor: kernel B1, one launch."""
+    CPU tensor: the plain version. CUDA tensor: kernel B1, one launch for
+    the whole stack."""
     global launches
     if img.device.type == "cpu":
         return corner_peaks_and_blur_torch(img, nms_radius, border, blur_radius, blur_sigma)
@@ -139,8 +150,8 @@ def corner_peaks_and_blur(img: torch.Tensor, nms_radius: int = 3, border: int = 
 
 
 def corner_peaks(img: torch.Tensor, nms_radius: int = 3, border: int = 16):
-    """(H,W) float32 -> (H,W) NMS'd corner response. CUDA: B1 with the blur
-    switched off (B2 mode)."""
+    """(H,W) or (B,H,W) float32 -> NMS'd corner response. CUDA: B1 with the
+    blur switched off (B2 mode)."""
     global launches_no_blur
     if img.device.type == "cpu":
         return corner_peaks_torch(img, nms_radius, border)

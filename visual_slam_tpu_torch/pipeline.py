@@ -24,8 +24,8 @@ of the semantics (its ATE was tuned on them, and a closure lands on the
 same keyframe as there), not a latency workaround. The JAX package's
 result-fetch machinery (packed blobs, background fetch pool) is not
 ported: on CUDA the work queues asynchronously, and an apply reads its
-tensors with `.cpu()`. The pipelined and batched loops (`run_pipelined`,
-`run_batched`) are not ported.
+tensors with `.cpu()`. The batched loop over several sequences is
+`multi.run_batched`; the pipelined loop (`run_pipelined`) is not ported.
 """
 from __future__ import annotations
 
@@ -106,23 +106,32 @@ class InitStep(NamedTuple):
     idx2: torch.Tensor  # (K,) best-match index into f1 per f0 feature
     cheir: torch.Tensor  # (K,) cheirality-good correspondences
     X1: torch.Tensor  # (K,3) points in the cam-0 frame
+    used_H: torch.Tensor  # () bool: the homography won the model selection
 
 
 def init_step(f0: frontend.Features, f1: frontend.Features, intr: torch.Tensor, *,
               ratio: float, max_hamming: float, ess_threshold: float,
-              distance_thresh: float, n_hyps: int, cross_check: bool = True,
-              min_flow_px: float = 0.0, generator: torch.Generator | None = None,
-              ransac_idx: torch.Tensor | None = None) -> InitStep:
+              distance_thresh: float, n_hyps: int, model_selection: bool = False,
+              cross_check: bool = True, min_flow_px: float = 0.0,
+              generator: torch.Generator | None = None,
+              ransac_idx: torch.Tensor | None = None,
+              homography_idx: torch.Tensor | None = None) -> InitStep:
     """One two-view initialisation attempt (≙ _init_step; the per-frame body
     of the reference's init loop, main.py:96-114): match -> essential
     RANSAC -> cheirality pose recovery, plus the median parallax of the
     cheirality-good points. The host gates on (n_matches, frac, parallax).
 
+    With `model_selection` the geometry is
+    `twoview.estimate_relative_pose_auto`, which also fits a homography and
+    keeps the model with the larger inlier support; as in the JAX package it
+    runs 512 hypotheses of each at threshold 3/fx, not `n_hyps` and
+    `ess_threshold`.
+
     Below `min_flow_px` median match flow the 0.9 valid-fraction gate is out
     of reach, so the geometry is skipped and frac = -1 (the JAX package's
     lax.cond; here a host branch, one scalar read per attempt).
-    `ransac_idx` (n_hyps, 8), when given, replaces the minimal sets drawn
-    from `generator`.
+    `ransac_idx` (n_hyps, 8) and, with model selection, `homography_idx`
+    (512, 4), when given, replace the minimal sets drawn from `generator`.
     """
     idx2, _, good = match.match_ratio_test(
         f0.desc, f1.desc, f0.valid, f1.valid, ratio=ratio,
@@ -131,20 +140,25 @@ def init_step(f0: frontend.Features, f1: frontend.Features, intr: torch.Tensor, 
     uv1, uv2 = f0.uv, f1.uv[idx2]
     flow = uv2 - uv1
     flow_med = _median(torch.sqrt(torch.sum(flow * flow, dim=-1) + 1e-12), good)
-    if min_flow_px <= 0 or float(flow_med) >= min_flow_px:
-        E, inl, _ = twoview.estimate_essential_ransac(
-            uv1, uv2, intr, good, threshold=ess_threshold, idx=ransac_idx,
-            generator=generator, n_hyps=n_hyps,
-        )
-        R, t, X1, cheir, frac = twoview.estimate_relative_pose(
-            E, uv1, uv2, intr, inl, distance_thresh)
-    else:
+    used_H = torch.zeros((), dtype=torch.bool, device=uv1.device)
+    if min_flow_px > 0 and float(flow_med) < min_flow_px:
         K = uv1.shape[0]
         R = torch.eye(3, dtype=uv1.dtype, device=uv1.device)
         t = torch.zeros(3, dtype=uv1.dtype, device=uv1.device)
         X1 = torch.zeros((K, 3), dtype=uv1.dtype, device=uv1.device)
         cheir = torch.zeros(K, dtype=torch.bool, device=uv1.device)
         frac = torch.full((), -1.0, dtype=uv1.dtype, device=uv1.device)
+    elif model_selection:
+        R, t, X1, cheir, frac, used_H = twoview.estimate_relative_pose_auto(
+            uv1, uv2, intr, good, distance_thresh=distance_thresh, idx_E=ransac_idx,
+            idx_H=homography_idx, generator=generator)
+    else:
+        E, inl, _ = twoview.estimate_essential_ransac(
+            uv1, uv2, intr, good, threshold=ess_threshold, idx=ransac_idx,
+            generator=generator, n_hyps=n_hyps,
+        )
+        R, t, X1, cheir, frac = twoview.estimate_relative_pose(
+            E, uv1, uv2, intr, inl, distance_thresh)
     # Median parallax of the cheirality-good points: a low-parallax pair can
     # pass the valid-fraction gate by luck of the vote and seed a degenerate
     # map, so the host gates on it too (the reference has no such gate).
@@ -153,7 +167,7 @@ def init_step(f0: frontend.Features, f1: frontend.Features, intr: torch.Tensor, 
     v2 = X1 - C2
     r2 = v2 / (torch.linalg.norm(v2, dim=-1, keepdim=True) + 1e-12)
     ang = torch.rad2deg(torch.arccos(torch.clamp(torch.sum(r1 * r2, dim=-1), -1.0, 1.0)))
-    return InitStep(good.sum(), frac, _median(ang, cheir), R, t, idx2, cheir, X1)
+    return InitStep(good.sum(), frac, _median(ang, cheir), R, t, idx2, cheir, X1, used_H)
 
 
 class MineStep(NamedTuple):
@@ -314,7 +328,8 @@ class Slam:
         self._last_loop_kf = -(10**9)
         self._pending_loop = None  # dict: scores, kf_id, feats, age
         self._pending_loop_verify = None  # dict: TrackStep, kf_id, cand, feats, snap, age
-        self.stats = {"init_frame": None, **{k: 0 for k in _STATS},
+        # init_model: the two-view model of the accepted monocular init.
+        self.stats = {"init_frame": None, "init_model": None, **{k: 0 for k in _STATS},
                       "loop_accepted": [], "loop_rejected_detail": []}
         self.timers = StageTimers(self.device)
 
@@ -326,16 +341,27 @@ class Slam:
                 torch.as_tensor(gray).to(self.device), self.cfg.frontend.max_features,
                 self.cfg.frontend.quality_level, self.cfg.frontend.nms_radius,
             )
+        self.consume(frame_idx, feats, depth)
+
+    def consume(self, frame_idx: int, feats: frontend.Features, depth: np.ndarray | None = None):
+        """Take one frame's features: an init attempt until the map is
+        initialised, then tracking. `process` and the batched loop
+        (multi.run_batched) both call it."""
         if not self.initialized:
             with self.timers.time("initialize"):
-                if self.cfg.use_depth and depth is not None:
-                    self._initialize_rgbd(frame_idx, feats, depth)
-                else:
-                    self._init_attempt(frame_idx, feats)
+                self._try_initialize(frame_idx, feats, depth)
         else:
             self._track(frame_idx, feats, depth)
 
     # ------------------------------------------------------------------ init
+
+    def _try_initialize(self, frame_idx, feats, depth):
+        """One frame before initialisation: RGB-D init from the depth map
+        where there is one, else a monocular two-view attempt."""
+        if self.cfg.use_depth and depth is not None:
+            self._initialize_rgbd(frame_idx, feats, depth)
+        else:
+            self._init_attempt(frame_idx, feats)
 
     def _init_attempt(self, frame_idx, feats):
         """Monocular init: pair the anchor frame with this one. The first
@@ -362,6 +388,7 @@ class Slam:
             max_hamming=cfg.frontend.max_hamming,
             ess_threshold=cfg.twoview.ess_threshold_factor / float(cfg.intrinsics[0]),
             distance_thresh=cfg.twoview.distance_thresh, n_hyps=cfg.twoview.ransac_hypotheses,
+            model_selection=cfg.twoview.use_model_selection,
             cross_check=cfg.frontend.cross_check, min_flow_px=cfg.twoview.min_flow_px,
             generator=self.generator,
         )
@@ -372,7 +399,8 @@ class Slam:
         cfg = self.cfg
         f0, anchor_idx = self._init_feats, self._init_frame_idx
         step = self._init_step(f0, feats)
-        scal = _host(torch.stack([step.n_matches.to(step.frac.dtype), step.frac, step.parallax]))
+        scal = _host(torch.stack([step.n_matches.to(step.frac.dtype), step.frac, step.parallax,
+                                  step.used_H.to(step.frac.dtype)]))
         n_matches = int(scal[0])
         if n_matches < cfg.twoview.min_matches:  # ≙ main.py:97-98
             return False
@@ -416,6 +444,7 @@ class Slam:
         self._finish_keyframe(kf1, feats, mapped, frame_idx)
         self.initialized = True
         self.stats["init_frame"] = frame_idx
+        self.stats["init_model"] = "homography" if scal[3] else "essential"
         self.trajectory.append(FrameResult(
             frame_idx, self.map.kf_R[kf1], self.map.kf_t[kf1], n_matches, True))
         return True

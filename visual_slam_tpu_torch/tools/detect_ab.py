@@ -6,7 +6,9 @@
                                                      [--rounds 2] [--iters 50]
 
 Each PATH is a detect_blur.cu with the same C entry point
-(`vslam_detect_blur`); it is built alone with this checkout's NVCC_FLAGS
+(`vslam_detect_blur`, taking the batch count B after the three pointers;
+a source from before the batch dimension needs the copy of this tool
+from its own checkout); it is built alone with this checkout's NVCC_FLAGS
 into a temporary directory, which is removed afterwards. Every build is
 checked bit for bit against the plain PyTorch version (peaks, blur, and the
 blur-off mode) at 480x640 on smoothed noise (border 16) and at 479x637 on

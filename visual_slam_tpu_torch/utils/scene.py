@@ -7,11 +7,13 @@ ray is cast against the box planes and the wall texture sampled bilinearly
 degenerate on a planar scene.
 
 The sequence exposes the dataset reader's interface (`frames(start, stop)`
-yielding (idx, gray, depth), and `ground_truth()` as (N,4,4) camera->world
-poses), so `run_sequence` takes it in place of ICL-NUIM. Images are float32
-gray in [0,1] and float32 metric z-depth; the world frame is frame 0's
-camera frame (x right, y down, z forward). Everything is NumPy/SciPy, made
-from `seed`.
+yielding (idx, gray, depth), `len`, `gray(i)`, `depth(i)`, and
+`ground_truth()` as (N,4,4) camera->world poses), so `run_sequence`,
+`multi.run_batched` and `utils.dataset.WindowView` take it in place of
+ICL-NUIM. Images are float32 gray in [0,1] and float32 metric z-depth; the
+world frame is frame 0's camera frame (x right, y down, z forward).
+Everything is NumPy/SciPy, made from `seed`. `FrameSequence` gives frames
+rendered once the same interface.
 """
 from __future__ import annotations
 
@@ -85,6 +87,7 @@ class SyntheticRGBDScene:
                 self._faces.append((a, side, b, c, self._texture(rng, shape)))
         pose = self._pose_wc if trajectory == "default" else self._revisit_pose_wc
         self._R_wc, self._C = zip(*(pose(i) for i in range(n_frames)))
+        self._last = None  # (i, (gray, depth)): gray(i) and depth(i) render once
 
     @staticmethod
     def _texture(rng: np.random.Generator, shape) -> np.ndarray:
@@ -146,6 +149,19 @@ class SyntheticRGBDScene:
             gray[m] = ndimage.map_coordinates(tex, coords, order=1, mode="nearest")
         return gray.astype(np.float32), depth.astype(np.float32)
 
+    def _rendered(self, i: int) -> tuple[np.ndarray, np.ndarray]:
+        if self._last is None or self._last[0] != i:
+            self._last = (i, self.render(i))
+        return self._last[1]
+
+    def gray(self, i: int) -> np.ndarray:
+        """(H,W) float32 gray of frame i (rendered once for gray and depth)."""
+        return self._rendered(i)[0]
+
+    def depth(self, i: int) -> np.ndarray:
+        """(H,W) float32 metric depth of frame i."""
+        return self._rendered(i)[1]
+
     def frames(self, start: int = 0, stop: int | None = None
                ) -> Iterator[tuple[int, np.ndarray, np.ndarray]]:
         """Yield (idx, gray, depth) for frames [start, stop)."""
@@ -160,3 +176,32 @@ class SyntheticRGBDScene:
         T[:, :3, :3] = np.stack(self._R_wc)
         T[:, :3, 3] = np.stack(self._C)
         return T
+
+
+class FrameSequence:
+    """Frames rendered once, behind the reader's interface: a list of
+    (idx, gray, depth) tuples (depth may be None) whose idx runs 0..N-1, so
+    `frames`, `gray(i)`, `depth(i)` and `len` number the frames one way,
+    with the (N,4,4) camera->world ground truth of those frames when given.
+    A strided or reordered pick is a `utils.dataset.WindowView` over it."""
+
+    def __init__(self, frames: list, ground_truth: np.ndarray | None = None):
+        if [f[0] for f in frames] != list(range(len(frames))):
+            raise ValueError("FrameSequence: frame ids must run 0..N-1")
+        self._frames = frames
+        self._gt = ground_truth
+
+    def __len__(self) -> int:
+        return len(self._frames)
+
+    def gray(self, i: int) -> np.ndarray:
+        return self._frames[i][1]
+
+    def depth(self, i: int) -> np.ndarray | None:
+        return self._frames[i][2]
+
+    def frames(self, start: int = 0, stop: int | None = None):
+        yield from self._frames[start:stop]
+
+    def ground_truth(self) -> np.ndarray | None:
+        return self._gt
