@@ -80,6 +80,27 @@ Phases, each raising on failure:
                run_sequence's, the sequences differ, each ATE < 0.02 m with
                0 failures, B1 and B3 launched once a step; frames/s beside
                the four single runs'
+ 22. sharded   the sharded solvers: (a) over an NCCL world of one rank in
+               this process, sharded_ba.optimize_sharded (chol, cg) on the
+               16-camera arc, optimize_large_sharded on config #5 at full
+               scale and sharded_pg.optimize_sharded on the 5k graph, each
+               bit-equal to its unsharded solve with the same B4/B5
+               launches; (b) 4 gloo ranks on the one card through
+               multihost.spawn_worker_fleet, config #5 and the 5k graph,
+               held to the unsharded card solve at the JAX tests' bars
+               (config #5's landmarks at the solve's own float32 spread),
+               two fleet runs bit-equal; each rank's warm iterations/s,
+               peak memory, B4/B5 launches, all-reduced bytes, and the
+               share of a profiled solve spent inside all-reduces;
+               B4/B5 at rank 0's pose-graph shapes beside index_add_ /
+               index_select and their bounds
+ 23. cli       phase 6's 60 frames written to disk in the ICL-NUIM layout;
+               `python -m visual_slam_tpu_torch.pipeline --rgbd
+               --pose-graph` with PLY, g2o and checkpoint (and, where
+               matplotlib imports, the trajectory plot and live dump) as a
+               subprocess that prints its kernel launches after the run,
+               equal to run_sequence in this process (keyframes, init
+               frame, bit-equal centres, launches); the artifacts load back
 
 Prints the kernels' JSON line, then, as the last line,
 {"ok": true, "device": {...}}. Exits non-zero with no result line when
@@ -1029,6 +1050,331 @@ def batched_phase(dev, smi, frames) -> dict:
     return launches
 
 
+# Phase 22: the sharded solvers. (a) An NCCL world of one rank in this
+# process is the unsharded solve, bit for bit. (b) Four gloo ranks on the one
+# card against the unsharded card solve, at the JAX tests' bars between a
+# sharded and an unsharded solve: config #5 tests/test_ba_large.py:33-45,
+# the 5k graph tests/test_pose_graph.py:203-221. Config #5's landmarks are
+# held to the unsharded solve's own float32 spread instead of X 1e-3: five LM
+# iterations leave weakly observed landmarks free along their rays, and the
+# unsharded solve, solved again from translations scaled by 1 + PERTURB,
+# moves the worst of them by tenths of a metre (this phase prints how far),
+# so no two float32 orders of the camera sums agree to 1e-3 there. The fleet's
+# per-landmark distance from the unsharded X, at its median, 99th percentile
+# and maximum, stays within X_SPREAD_FACTOR x the same statistic of that
+# spread.
+FLEET_RANKS = 4
+LARGE_COST_RTOL, LARGE_T_ATOL = 1e-2, 1e-3
+PERTURB, X_SPREAD_FACTOR, X_QUANTILES = 1e-7, 2.0, (0.5, 0.99, 1.0)
+PG5K_T_ATOL, PG5K_R_ATOL, PG5K_COST_RTOL = 2e-3, 2e-4, 1e-3
+PG5K = dict(n_iters=12, cg_iters=32)
+CLI_FRAMES = 60  # phase 23: phase 6's frames, written to disk
+# Phase 23's subprocess: the command line run as `python -m
+# visual_slam_tpu_torch.pipeline ARGS` runs it (runpy, as __main__), with
+# every kernel count set to 0 just before, and that run's counts printed
+# after its JSON line, on a last line of their own.
+CLI_RUNNER = ("import json, runpy, chip_smoke\n"
+              "chip_smoke.zero_kernel_counts()\n"
+              "runpy.run_module('visual_slam_tpu_torch.pipeline', run_name='__main__', alter_sys=True)\n"
+              "print(json.dumps({'launches': chip_smoke.kernel_counts()}))\n")
+
+
+def launch_dict(reduce, expand) -> dict:
+    """A path's launches of every kernel, for one that runs only B4/B5."""
+    return {"detect_blur": 0, "patch": 0, "cam_reduce": int(reduce), "cam_expand": int(expand)}
+
+
+def fleet_run(jobs, out_dir) -> tuple[list, dict, float]:
+    """Spawn FLEET_RANKS gloo ranks on the card through the port's fleet
+    launcher; every rank runs `jobs`. Returns (the ranks' log lines,
+    {job: [rank npz dicts]}, wall seconds)."""
+    import os
+
+    from visual_slam_tpu_torch.parallel import multihost
+
+    os.makedirs(out_dir)
+    spec = os.path.join(out_dir, "jobs.json")
+    with open(spec, "w") as f:
+        json.dump({"jobs": jobs}, f)
+    t0 = time.perf_counter()
+    logs = multihost.spawn_worker_fleet(
+        FLEET_RANKS, ["-m", "visual_slam_tpu_torch.parallel.worker", "--backend", "gloo",
+                      "--device", "cuda", spec, out_dir], timeout_s=600)
+    wall = time.perf_counter() - t0
+    out = {j["name"]: [dict(np.load(os.path.join(out_dir, f"{j['name']}.r{r}.npz")))
+                       for r in range(FLEET_RANKS)] for j in jobs}
+    lines = [ln for log_ in logs for ln in log_.splitlines() if ln.startswith("rank ")]
+    return lines, out, wall
+
+
+def sharded_phase(dev, smi) -> tuple[dict, dict]:
+    """Phase 22: the sharded solvers on the card. Returns (launches by path,
+    the per-rank B4/B5 timings at the 4-rank pose graph's shapes)."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+    from visual_slam_tpu_torch.models import ba, ba_large
+    from visual_slam_tpu_torch.models import pose_graph as pg
+    from visual_slam_tpu_torch.ops.kernels import seg_kernel
+    from visual_slam_tpu_torch.parallel import multihost, sharded_ba, sharded_pg
+    from visual_slam_tpu_torch.utils.synthetic import arc_problem, big_pose_graph, build_loop_map
+
+    lap = [time.perf_counter()]
+    # (a) NCCL, a world of one rank, here
+    p16, _ = arc_problem(16, 2048, 0.5, 0.02, 0.03, seed=1, device=dev)
+    prob5, gt5 = build_loop_map(CONFIG5["K"], CONFIG5["P"], CONFIG5["Q"], seed=0, device=dev)
+    g5k, _ = big_pose_graph(5000, device=dev)
+    n5, cg5, lam5 = CONFIG5["n_iters"], CONFIG5["cg_iters"], CONFIG5["lm_lambda"]
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{multihost.free_port()}",
+                            world_size=1, rank=0)
+    group = multihost.global_group()
+    cases = {
+        "nccl1_arc_chol": (lambda: ba.optimize(p16, 10, 12, solver="chol"),
+                           lambda: sharded_ba.optimize_sharded(p16, group, 10, 12, solver="chol")),
+        "nccl1_arc_cg": (lambda: ba.optimize(p16, 10, 12, solver="cg"),
+                         lambda: sharded_ba.optimize_sharded(p16, group, 10, 12, solver="cg")),
+        "nccl1_config5": (lambda: ba_large.optimize(prob5, n5, cg5, init_lambda=lam5),
+                          lambda: sharded_ba.optimize_large_sharded(prob5, group, n5, cg5,
+                                                                    init_lambda=lam5)),
+        "nccl1_pg5k": (lambda: pg.optimize(g5k, **PG5K),
+                       lambda: sharded_pg.optimize_sharded(g5k, group, **PG5K)),
+    }
+    by_path, unsharded = {}, {}
+    try:
+        for path, (plain_fn, sharded_fn) in cases.items():
+            res = []
+            for fn in (plain_fn, sharded_fn):
+                torch.cuda.synchronize()
+                zero_kernel_counts()
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                res.append((out, time.perf_counter() - t0, kernel_counts()))
+            (u, u_s, u_n), (s, s_s, s_n) = res
+            flat = lambda o: [o[0], o[1], o[-1]] if path == "nccl1_pg5k" else [  # noqa: E731
+                o[0].R, o[0].t, o[0].X, o[1]]
+            if not all(torch.equal(a, b) for a, b in zip(flat(u), flat(s))) or u_n != s_n:
+                raise AssertionError(f"sharded {path}: a world of one rank is not the unsharded "
+                                     f"solve (launches {s_n} vs {u_n})")
+            if not (s_n["cam_reduce"] > 0 and s_n["cam_expand"] > 0):
+                raise AssertionError(f"sharded {path}: no B4/B5 launch ({s_n})")
+            by_path[path] = s_n
+            unsharded[path] = [t.cpu().numpy() for t in flat(u)]
+            log(f"[sharded] (a) {path}: NCCL world of 1 rank bit-equal to the unsharded solve "
+                f"(cost {float(flat(s)[-1])!r}), launches B4 {s_n['cam_reduce']} B5 "
+                f"{s_n['cam_expand']} in both; {1e3 * s_s:.2f} ms vs {1e3 * u_s:.2f} ms unsharded")
+    finally:
+        dist.destroy_process_group()
+    t_err0 = float(np.abs(prob5.t.cpu().numpy() - gt5[1]).max())
+    pert, _ = ba_large.optimize(prob5._replace(t=prob5.t * (1 + PERTURB)), n5, cg5, init_lambda=lam5)
+    spread = np.quantile(np.abs(pert.X.cpu().numpy() - unsharded["nccl1_config5"][2]).max(1),
+                         X_QUANTILES)
+    log(f"[sharded] config #5's own spread: solved from t x (1 + {PERTURB}), X moves by "
+        f"{spread[0]:.3g} / {spread[1]:.3g} / {spread[2]:.3g} (median / 99th percentile / max), t by "
+        f"{float((pert.t - prob5.t.new_tensor(unsharded['nccl1_config5'][1])).abs().max()):.3g}")
+    del p16, prob5, g5k, pert
+    torch.cuda.empty_cache()
+    lap.append(time.perf_counter())
+
+    # (b) gloo, FLEET_RANKS ranks on the one card, twice
+    jobs = [dict(name="config5", kind="large",
+                 problem=dict(synthetic="loop_map", K=CONFIG5["K"], P=CONFIG5["P"], Q=CONFIG5["Q"]),
+                 opts=dict(n_iters=n5, cg_iters=cg5, init_lambda=lam5), repeat=2),
+            dict(name="pg5k", kind="pg", problem=dict(synthetic="big_pose_graph", K=5000),
+                 opts=PG5K, repeat=2)]
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = [fleet_run(jobs, os.path.join(tmp, f"run{k}")) for k in range(2)]
+    for name, ref_path in (("config5", "nccl1_config5"), ("pg5k", "nccl1_pg5k")):
+        (_, a, _), (_, b, _) = runs
+        keys = ("R", "t", "X", "cost") if name == "config5" else ("R", "t", "cost")
+        for r in range(FLEET_RANKS):
+            if not all(np.array_equal(a[name][r][k], b[name][r][k]) for k in keys):
+                raise AssertionError(f"sharded fleet {name}: rank {r} differs between two runs")
+            if not all(np.array_equal(a[name][r][k], a[name][0][k]) for k in ("R", "t", "cost")):
+                raise AssertionError(f"sharded fleet {name}: rank {r} ended elsewhere than rank 0")
+        ranks = a[name]
+        ref = unsharded[ref_path]
+        cost, ref_cost = float(ranks[0]["cost"]), float(ref[-1])
+        if name == "config5":
+            dX = np.quantile(np.abs(np.concatenate([r["X"] for r in ranks]) - ref[2]).max(1),
+                             X_QUANTILES)
+            errs = dict(t=np.abs(ranks[0]["t"] - ref[1]).max(),
+                        cost=abs(cost - ref_cost) / max(1.0, ref_cost),
+                        **{f"X_q{q}": d for q, d in zip(X_QUANTILES, dX)})
+            bars = dict(t=LARGE_T_ATOL, cost=LARGE_COST_RTOL,
+                        **{f"X_q{q}": X_SPREAD_FACTOR * d for q, d in zip(X_QUANTILES, spread)})
+            t_err = float(np.abs(ranks[0]["t"] - gt5[1]).max())
+            extra = f"; max |t err| {t_err0:.5f} -> {t_err:.5f} m"
+        else:
+            errs = dict(t=np.abs(ranks[0]["t"] - ref[1]).max(), R=np.abs(ranks[0]["R"] - ref[0]).max(),
+                        cost=abs(cost - ref_cost) / max(1.0, abs(ref_cost)))
+            bars = dict(t=PG5K_T_ATOL, R=PG5K_R_ATOL, cost=PG5K_COST_RTOL)
+            extra = ""
+        if not all(np.isfinite(errs[k]) and errs[k] <= bars[k] for k in bars):
+            raise AssertionError(f"sharded fleet {name}: against the unsharded card solve {errs}, "
+                                 f"bars {bars}")
+        by_path[f"gloo{FLEET_RANKS}_{name}"] = launch_dict(
+            sum(r["reduce_launches"] for r in ranks), sum(r["expand_launches"] for r in ranks))
+        if not all(r["reduce_launches"] > 0 and r["expand_launches"] > 0 for r in ranks):
+            raise AssertionError(f"sharded fleet {name}: a rank launched no B4 or no B5")
+        n_it = jobs[0]["opts"]["n_iters"] if name == "config5" else PG5K["n_iters"]
+        log(f"[sharded] (b) {name}, {FLEET_RANKS} gloo ranks on one card: cost {cost!r} (unsharded "
+            f"{ref_cost!r}); against the unsharded solve "
+            + ", ".join(f"{k} {float(v):.3g} (bar {bars[k]})" for k, v in errs.items())
+            + f"; two fleet runs bit-equal, every rank on rank 0's poses and cost{extra}")
+        for r, o in enumerate(ranks):
+            if int(o["allreduce_spans"]) != int(o["allreduce_calls"]):
+                raise AssertionError(f"sharded fleet {name}: rank {r}'s profile holds "
+                                     f"{int(o['allreduce_spans'])} all-reduce spans for "
+                                     f"{int(o['allreduce_calls'])} calls")
+            ar_ms, it_ms = float(o["allreduce_ms"]) / n_it, 1e3 * float(o["profiled_wall_s"]) / n_it
+            log(f"[sharded] (b) {name} rank {r}: warm {n_it / o['walls'][1]:.3f} iters/s (first solve "
+                f"{o['walls'][0]:.3f} s, warm {o['walls'][1]:.4f} s), peak {o['peak_mem_bytes'] / 1e9:.3f} "
+                f"GB, B4 {int(o['reduce_launches'])} B5 {int(o['expand_launches'])}, all-reduce "
+                f"{int(o['allreduce_calls'])} calls, {float(o['allreduce_bytes']) / n_it:.0f} B an "
+                f"iteration; a profiled solve: {ar_ms:.3f} ms an iteration inside all-reduces "
+                f"(torch.profiler's gloo:all_reduce spans: peers' waits and this rank's queued "
+                f"kernels included) of {it_ms:.3f} ms, share {ar_ms / it_ms:.3f}")
+    log(f"[sharded] (b) the {FLEET_RANKS} ranks share one card's SMs and the host's cores: their times "
+        f"show the protocol's cost (start-up, host-staged gloo all-reduces), not scaling; fleet "
+        f"runs {runs[0][2]:.1f} s and {runs[1][2]:.1f} s wall, ranks' start-up included; {smi}")
+    lap.append(time.perf_counter())
+
+    # B4 and B5 at rank 0's shapes of the 4-rank pose graph, beside
+    # index_add_ / index_select and their bounds
+    g_cpu, _ = big_pose_graph(5000, device="cpu")
+    local = sharded_pg.shard_graph(sharded_pg.pad_edges(g_cpu, FLEET_RANKS), 0, FLEET_RANKS)
+    ids = torch.cat([local.e_i, local.e_j, local.s_i, local.s_j]).to(torch.int32).to(dev)
+    K, N = g_cpu.R.shape[0], ids.shape[0]
+    rng = np.random.default_rng(22)
+    times = {}
+    for name, C in (("B4", 42), ("B4", 6), ("B5", 12), ("B5", 6)):
+        if name == "B4":
+            d = torch.from_numpy(rng.normal(size=(C, N)).astype(np.float32)).to(dev)
+            plan = seg_kernel.reduce_plan(ids, K)
+            kernel_fn, plain_fn, library_fn = (lambda: seg_kernel.cam_reduce(d, ids, K, plan),
+                                               lambda: seg_kernel.cam_reduce_torch(d, ids, K),
+                                               library_reduce(d, ids, K))
+            torch.testing.assert_close(kernel_fn(), plain_fn(), rtol=REDUCE_RTOL, atol=REDUCE_ATOL)
+            bound = bound_ms(4 * (C * N + N + C * K), C * N)
+        else:
+            x = torch.from_numpy(rng.normal(size=(C, K)).astype(np.float32)).to(dev)
+            kernel_fn, plain_fn, library_fn = (lambda: seg_kernel.cam_expand(x, ids),
+                                               lambda: seg_kernel.cam_expand_torch(x, ids),
+                                               library_expand(x, ids))
+            if not torch.equal(kernel_fn(), plain_fn()):
+                raise AssertionError(f"B5 C={C} at the sharded pose graph's shape: not bit-equal")
+            bound = bound_ms(4 * (C * K + N + C * N), 0)
+        p1, k1, k2, p2 = (queued_ms(f, iters=50) for f in (plain_fn, kernel_fn, kernel_fn, plain_fn))
+        kms, pms, lms = min(k1, k2), min(p1, p2), queued_ms(library_fn, iters=50)
+        times[(name, C, N, K)] = (kms, pms, lms, bound)
+        log(f"[sharded] {name} C={C} N={N} K={K} (rank 0 of the {FLEET_RANKS}-rank 5k pose graph): "
+            f"kernel {kms:.4f} ms, plain {pms:.4f} ms, library {lms:.4f} ms (queued events); bound "
+            f"{bound[0]:.5f} ms ({bound[1]}): kernel at {bound[0] / kms:.3f} of its bound; kernel "
+            f"{'beats' if kms < lms else 'LOSES to'} the library call; {smi}")
+    lap.append(time.perf_counter())
+    secs = np.diff(lap)
+    log(f"[sharded] phase 22 took {lap[-1] - lap[0]:.1f} s: (a) {secs[0]:.1f}, (b) two fleet runs "
+        f"{secs[1]:.1f}, kernel timings {secs[2]:.1f}")
+    return by_path, times
+
+
+def cli_phase(dev, smi, frames, gt) -> dict:
+    """Phase 23: the command line as a subprocess on the card over phase
+    6's frames written to disk, against run_sequence in this process.
+    Returns the command line's own kernel launches."""
+    import importlib.util
+    import os
+    import tempfile
+
+    from visual_slam_tpu_torch import native
+    from visual_slam_tpu_torch.config import size_config_for
+    from visual_slam_tpu_torch.pipeline import run_sequence
+    from visual_slam_tpu_torch.utils import checkpoint, g2o_io
+    from visual_slam_tpu_torch.utils.dataset import ICLNUIMDataset, write_icl_nuim
+    from visual_slam_tpu_torch.utils.evaluate import ate_rmse
+
+    t_start = time.perf_counter()
+    plots = importlib.util.find_spec("matplotlib") is not None
+    log(f"[cli] matplotlib {'importable: --export-traj and --live-dump on' if plots else 'absent: --export-traj and --live-dump off'}")
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "icl")
+        t0 = time.perf_counter()
+        write_icl_nuim(data, frames[:CLI_FRAMES], gt[:CLI_FRAMES])
+        write_s = time.perf_counter() - t0
+        art = {k: os.path.join(tmp, v) for k, v in (("ply", "map.ply"), ("g2o", "graph.g2o"),
+                                                    ("ckpt", "map.npz"), ("traj", "traj.png"),
+                                                    ("live", "live"))}
+        cmd = [sys.executable, "-c", CLI_RUNNER, "--data", data, "--frames",
+               str(CLI_FRAMES), "--rgbd", "--pose-graph", "--export-ply", art["ply"], "--export-g2o",
+               art["g2o"], "--checkpoint", art["ckpt"]]
+        if plots:
+            cmd += ["--export-traj", art["traj"], "--live-dump", art["live"]]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                             cwd=os.path.dirname(os.path.abspath(__file__)))
+        cli_s = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"cli: exit {res.returncode}:\n{res.stderr[-3000:]}")
+        *_, out_line, launches_line = res.stdout.strip().splitlines()
+        out, launches = json.loads(out_line), json.loads(launches_line)["launches"]
+        cfg = size_config_for(CLI_FRAMES)
+        cfg.use_depth = True
+        ds = ICLNUIMDataset(data)
+        torch.cuda.synchronize()
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        slam = run_sequence(ds, cfg, 0, CLI_FRAMES, device=dev)
+        slam.optimize_pose_graph()
+        torch.cuda.synchronize()
+        wall, here_launches = time.perf_counter() - t0, kernel_counts()
+        idxs, est = slam.positions()
+        ate, _ = ate_rmse(est, ds.ground_truth()[idxs, :3, 3], align_scale=False)
+        m, traj = checkpoint.load_map(art["ckpt"])
+        same = ((out["frames"], out["keyframes"], out["init_frame"], out["points"])
+                == (len(idxs), slam.stats["keyframes"], slam.stats["init_frame"],
+                    int(slam.map.pt_valid.sum())) and np.array_equal(traj, est)
+                and out["ate_rmse_m"] == ate and launches == here_launches)
+        if not same:
+            raise AssertionError(f"cli: {out} (launches {launches}) differs from run_sequence in this "
+                                 f"process (keyframes {slam.stats['keyframes']}, init "
+                                 f"{slam.stats['init_frame']}, ATE {ate}, centres equal "
+                                 f"{np.array_equal(traj, est)}, launches {here_launches})")
+        for name in ("kf_R", "kf_t", "kf_valid", "kf_frame_idx", "kf_scale_meas", "pt_xyz", "pt_desc",
+                     "pt_valid", "pt_views", "obs_cam", "obs_pt", "obs_uv", "obs_depth", "obs_valid",
+                     "n_kf", "n_pt", "n_obs"):
+            if not np.array_equal(getattr(m, name), getattr(slam.map, name)):
+                raise AssertionError(f"cli: the checkpoint's {name} differs from the run's map")
+        poses, points, _ = g2o_io.load_pose_graph(art["g2o"])
+        kf = np.where(slam.map.kf_valid)[0]
+        g2o_err = max(max(np.abs(poses[int(k)][0] - slam.map.kf_R[k].T).max(),
+                          np.abs(poses[int(k)][1] + slam.map.kf_R[k].T @ slam.map.kf_t[k]).max())
+                      for k in kf)
+        if sorted(poses) != list(kf) or len(points) != out["points"] or not g2o_err < 1e-6:
+            raise AssertionError(f"cli: g2o file: {len(poses)} poses for {len(kf)} keyframes, "
+                                 f"{len(points)} points, max pose error {g2o_err}")
+        with open(art["ply"]) as f:
+            head, body = f.read().split("end_header\n")
+        if f"element vertex {out['points']}" not in head or len(body.splitlines()) != out["points"]:
+            raise AssertionError("cli: the PLY file's vertices are not the valid points")
+        if plots and not (os.path.getsize(art["traj"]) > 0
+                          and os.path.exists(os.path.join(art["live"], "state.json"))):
+            raise AssertionError("cli: no trajectory plot or live dump")
+    if not (out["ate_rmse_m"] < ATE_LIMIT_M and launches["cam_reduce"] > 0
+            and launches["detect_blur"] == launches["patch"] == CLI_FRAMES):
+        raise AssertionError(f"cli: ATE {out['ate_rmse_m']}, launches {launches}")
+    log(f"[cli] {CLI_FRAMES} frames at 640x480 written in {write_s:.1f} s and read by "
+        f"{'the native loader' if native.available() else 'PIL (no native loader: ' + str(native.build_error) + ')'}; "
+        f"the command line in {cli_s:.1f} s (process start included): {json.dumps(out)}")
+    log(f"[cli] equal to run_sequence + optimize_pose_graph here ({CLI_FRAMES / wall:.2f} frames/s): "
+        f"keyframes {out['keyframes']}, init frame {out['init_frame']}, centres bit-equal, ATE "
+        f"{ate:.6f} m; checkpoint = the run's map, g2o poses within {g2o_err:.2g}, PLY {out['points']} "
+        f"vertices; the command line's launches {launches}, the same here; phase 23 took {time.perf_counter() - t_start:.1f} s; {smi}")
+    return launches
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -1391,15 +1737,19 @@ def main() -> int:
     lap.append(time.perf_counter())
     batched_launches = batched_phase(dev, smi, frames)
     lap.append(time.perf_counter())
+    sharded_launches, sharded_times = sharded_phase(dev, smi)
+    cli_launches = cli_phase(dev, smi, rendered, scene.ground_truth())
     secs = np.diff(lap)
     log(f"[loop] phases 17-21 took {lap[-1] - lap[0]:.1f} s: pose graph {secs[0]:.1f}, scoring "
         f"{secs[1]:.1f}, close loop {secs[2]:.1f}, rendering {REVISIT_FRAMES} frames in {RENDER_THREADS} "
         f"threads {secs[3]:.1f}, two revisit runs {secs[4]:.1f}, config #3 {secs[5]:.1f}; revisit "
         f"launches {revisit_launches}")
     # Each path's launches, its counts set to 0 just before it: phase 6
-    # (`launches` below), 15 (twice), 20 (one of its two runs) and 21.
+    # (`launches` below), 15 (twice), 20 (one of its two runs), 21, 22 (its
+    # sharded solves; a fleet path sums its ranks' counts) and 23 (the
+    # command line's own process, counted there around its run).
     by_path = {"rgbd_60": launches, **mono_launches, "revisit_480": revisit_launches,
-               "batched_4x60": batched_launches}
+               "batched_4x60": batched_launches, **sharded_launches, "cli_rgbd_60": cli_launches}
 
     kernels = [
         dict(name="detect_blur", route="cuda", source="visual_slam_tpu_torch/csrc/detect_blur.cu",
@@ -1427,7 +1777,9 @@ def main() -> int:
     ]
     for k in kernels:
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in by_path.items()}
-    for (name, C, N, K, ids), (kms, pms, lms, (b, by)) in seg_times.items():
+    for (name, C, N, K, ids), (kms, pms, lms, (b, by)) in [
+            *seg_times.items(), *(((n, C, N, K, "sharded pose graph"), v)
+                                  for (n, C, N, K), v in sharded_times.items())]:
         log(f"[kernels] {name} at C={C}, N={N}, K={K} ({ids} ids): {kms:.4f} ms, plain {pms:.4f} ms, "
             f"library {lms:.4f} ms, bound {b:.4f} ms ({by}): {b / kms:.3f} of the bound")
     log(smi)

@@ -541,3 +541,58 @@ def test_run_batched_card_equals_run_sequence(cuda):
             assert (a.frame_idx, a.is_keyframe, a.n_tracked) == (b.frame_idx, b.is_keyframe, b.n_tracked)
             assert np.array_equal(a.R_cw, b.R_cw) and np.array_equal(a.t_cw, b.t_cw)
         assert np.array_equal(slam.map.pt_xyz, single.map.pt_xyz)
+
+
+@pytest.fixture(scope="module")
+def nccl_world_of_one():
+    """An NCCL process group of one rank on the card, in the test process."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import torch.distributed as dist
+    from visual_slam_tpu_torch.parallel import multihost
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{multihost.free_port()}",
+                            world_size=1, rank=0)
+    try:
+        yield multihost.global_group()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("solver", ["chol", "cg", "large", "pose_graph"])
+def test_nccl_world_of_one_is_the_unsharded_solve(nccl_world_of_one, solver):
+    """The sharded entry points over an NCCL world of one rank are the
+    unsharded solves on the card, bit for bit, with the same B4 and B5
+    launches."""
+    from visual_slam_tpu_torch.parallel import sharded_ba, sharded_pg
+
+    cuda = torch.device("cuda")
+    if solver == "pose_graph":
+        g, _ = synthetic.big_pose_graph(2000, device=cuda)
+        unsharded = lambda: pose_graph.optimize(g, n_iters=4, cg_iters=16)  # noqa: E731
+        sharded = lambda: sharded_pg.optimize_sharded(g, nccl_world_of_one, n_iters=4,  # noqa: E731
+                                                      cg_iters=16)
+    else:
+        p, _ = synthetic.arc_problem(8, 512, noise_px=0.3, pose_noise=0.02, point_noise=0.03,
+                                     device=cuda)
+        if solver == "large":
+            unsharded = lambda: ba_large.optimize(p, n_iters=4, cg_iters=8)  # noqa: E731
+            sharded = lambda: sharded_ba.optimize_large_sharded(  # noqa: E731
+                p, nccl_world_of_one, n_iters=4, cg_iters=8)
+        else:
+            unsharded = lambda: ba.optimize(p, n_iters=4, solver=solver)  # noqa: E731
+            sharded = lambda: sharded_ba.optimize_sharded(  # noqa: E731
+                p, nccl_world_of_one, n_iters=4, solver=solver)
+    counts = []
+    outs = []
+    for fn in (unsharded, sharded):
+        seg_kernel.reduce_launches = seg_kernel.expand_launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        counts.append((seg_kernel.reduce_launches, seg_kernel.expand_launches))
+        outs.append([out[0], out[1], out[-1]] if solver == "pose_graph"
+                    else [out[0].R, out[0].t, out[0].X, out[1]])
+    assert counts[0] == counts[1] and counts[0][0] > 0
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)

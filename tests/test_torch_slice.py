@@ -230,13 +230,32 @@ def _run(args, cwd):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports without pulling in jax."""
+    """Every module of the port imports without pulling in jax, the sharded
+    solvers (parallel/*, the rank worker) and the command line's outputs
+    among them; and neither does running the command line's lazily imported
+    writers nor its argument parser."""
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import contextlib, importlib, io, pkgutil, sys, tempfile\n"
+        "import numpy as np\n"
         "import visual_slam_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, 'visual_slam_tpu_torch.')]\n"
         "[importlib.import_module(m) for m in mods]\n"
         "assert len(mods) >= 20, mods\n"
+        "need = ['parallel.mesh', 'parallel.multihost', 'parallel.sharded_ba', 'parallel.sharded_pg',\n"
+        "        'parallel.worker', 'utils.checkpoint', 'utils.g2o_io', 'utils.viz', 'utils.live_viewer']\n"
+        "assert all('visual_slam_tpu_torch.' + m in mods for m in need), mods\n"
+        "from visual_slam_tpu_torch import pipeline\n"
+        "from visual_slam_tpu_torch.models.map_state import SlamMap\n"
+        "from visual_slam_tpu_torch.parallel import worker\n"
+        "from visual_slam_tpu_torch.utils import checkpoint, g2o_io, viz\n"
+        "d = tempfile.mkdtemp()\n"
+        "checkpoint.load_map(checkpoint.save_map(d + '/m.npz', SlamMap()) or d + '/m.npz')\n"
+        "g2o_io.save_pose_graph(d + '/g.g2o', np.eye(3)[None], np.zeros((1, 3)), [True])\n"
+        "viz.save_ply(d + '/m.ply', np.zeros((2, 3)))\n"
+        "viz._overlay_image(np.zeros((4, 4)), None, np.ones((1, 2)))\n"
+        "for main in (pipeline.main, worker.main):\n"
+        "    with contextlib.redirect_stdout(io.StringIO()), contextlib.suppress(SystemExit):\n"
+        "        main(['--help'])\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'visual_slam_tpu.'))]\n"
         "assert not bad, bad\n"
         "print('ok', len(mods))\n"

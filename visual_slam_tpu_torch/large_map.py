@@ -1,21 +1,29 @@
-"""BASELINE.json config #5 on one GPU: large-map BA at ~5k keyframes and
-~1M landmarks (port of scripts/large_map_bench.py, without the mesh sweep).
+"""BASELINE.json config #5: large-map BA at ~5k keyframes and ~1M landmarks
+(port of scripts/large_map_bench.py).
 
     python -m visual_slam_tpu_torch.large_map --kf 5000 --pts 1048576 \\
         --obs-per-pt 4 --iters 5 --cg-iters 8 --lm-lambda 1e-2
+    python -m visual_slam_tpu_torch.large_map --ranks 1 2 4 --backend gloo
 
 Builds the synthetic loop map (utils/synthetic.build_loop_map) on the card,
 runs the memory-linear large-map solver (models/ba_large.optimize) twice, a
 first (cold) run and a warm one, checks convergence (cost drop and pose
-recovery) and prints one JSON line last. Needs a CUDA card: the measurement
+recovery) and prints one JSON line last. `--ranks N [M ...]` (the JAX
+script's --devices / --sweep) solves it landmark-sharded over N ranks
+(parallel/sharded_ba.optimize_large_sharded), spawned through
+multihost.spawn_worker_fleet, each rank on card rank % cards; the line then
+holds one run per rank count. `--backend nccl` wants a card a rank; ranks
+sharing one card need `--backend gloo`. Needs a CUDA card: the measurement
 does not fall back to the CPU.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -24,6 +32,7 @@ import torch
 from .models import ba_large
 from .models.ba import BAProblem
 from .ops.kernels import seg_kernel
+from .parallel import multihost
 from .utils.synthetic import build_loop_map
 
 COST_DROP = 0.05  # cost_after < COST_DROP * cost_before (tests/test_ba_large.py:60)
@@ -102,6 +111,45 @@ def check(res: dict) -> None:
                              f"{res['max_t_err_m']}: did not fall")
 
 
+def run_ranks(ranks: int, backend: str, problem: dict, cost_before: float, t_err0: float,
+              t_gt: np.ndarray, n_iters: int, cg_iters: int, lm_lambda: float) -> dict:
+    """Solve the loop map `problem` (build_loop_map's arguments) sharded over
+    `ranks` worker ranks, a first and a warm solve. Returns run()'s numbers
+    for it, with each rank's peak memory, B4/B5 launches and all-reduces."""
+    with tempfile.TemporaryDirectory() as tmp:
+        job = dict(name="config5", kind="large", problem=dict(synthetic="loop_map", **problem),
+                   opts=dict(n_iters=n_iters, cg_iters=cg_iters, init_lambda=lm_lambda), repeat=2)
+        spec = os.path.join(tmp, "jobs.json")
+        with open(spec, "w") as f:
+            json.dump({"jobs": [job]}, f)
+        logs = multihost.spawn_worker_fleet(ranks, ["-m", "visual_slam_tpu_torch.parallel.worker",
+                                                    "--backend", backend, spec, tmp])
+        out = [dict(np.load(os.path.join(tmp, f"config5.r{r}.npz"))) for r in range(ranks)]
+    for line in logs:
+        print(line.strip(), file=sys.stderr)
+    r0 = out[0]
+    if any(not np.array_equal(o["t"], r0["t"]) or o["cost"] != r0["cost"] for o in out):
+        raise AssertionError(f"{ranks} ranks ended on different poses or costs")
+    walls = np.array([o["walls"] for o in out])  # (ranks, 2): first, warm
+    return dict(
+        ranks=ranks, backend=backend, lm_iters=n_iters, cg_iters=cg_iters,
+        iters_per_s=n_iters / float(walls[:, 1].max()),
+        wall_s_warm=float(walls[:, 1].max()), wall_s_first=float(walls[:, 0].max()),
+        cost_before=cost_before, cost_after=float(r0["costs"][1]),
+        cost_after_first=float(r0["costs"][0]),
+        max_t_err_m=float(np.abs(r0["t"] - t_gt).max()), max_t_err_m_before=t_err0,
+        peak_mem_gb=[float(o["peak_mem_bytes"]) / 1e9 for o in out],
+        launches_per_optimize=[{"cam_reduce": int(o["reduce_launches"]),
+                                "cam_expand": int(o["expand_launches"])} for o in out],
+        allreduce_bytes_per_iter=float(r0["allreduce_bytes"]) / n_iters,
+        # one more solve under torch.profiler: each rank's ms inside its
+        # all-reduces an iteration, and their share of that solve's wall
+        allreduce_ms_per_iter=[float(o["allreduce_ms"]) / n_iters for o in out],
+        allreduce_share=[float(o["allreduce_ms"]) / (1e3 * float(o["profiled_wall_s"]))
+                         for o in out],
+    )
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kf", type=int, default=5000)
@@ -111,6 +159,10 @@ def main(argv=None) -> int:
     ap.add_argument("--cg-iters", type=int, default=8)
     ap.add_argument("--lm-lambda", type=float, default=1e-2)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ranks", type=int, nargs="+", default=[1],
+                    help="rank counts to solve with (1: in this process, unsharded)")
+    ap.add_argument("--backend", default="nccl", choices=multihost.BACKENDS,
+                    help="process-group backend of the sharded runs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("large_map: no CUDA card; this measurement runs only on one", file=sys.stderr)
@@ -123,13 +175,30 @@ def main(argv=None) -> int:
     prob, gt = build_loop_map(K, P, Q, seed=args.seed, device=dev)
     _sync(dev)
     build_s = time.perf_counter() - t0
-    torch.cuda.reset_peak_memory_stats(dev)
-    res, _ = run(prob, gt, args.iters, args.cg_iters, args.lm_lambda)
-    res["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
-    res["build_s"] = build_s
-    res["device"] = device_line()
-    check(res)
-    print(json.dumps({"metric": "config#5 large-map BA (synthetic)", **res}))
+    if args.ranks == [1]:
+        torch.cuda.reset_peak_memory_stats(dev)
+        res, _ = run(prob, gt, args.iters, args.cg_iters, args.lm_lambda)
+        res["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        res["build_s"] = build_s
+        res["device"] = device_line()
+        check(res)
+        print(json.dumps({"metric": "config#5 large-map BA (synthetic)", **res}))
+        return 0
+    cost_before = float(ba_large._cost(prob))
+    t_err0 = float(np.abs(prob.t.cpu().numpy() - gt[1]).max())
+    runs = []
+    for n in args.ranks:
+        if n == 1:
+            res, _ = run(prob, gt, args.iters, args.cg_iters, args.lm_lambda)
+            res["ranks"] = 1
+        else:
+            res = run_ranks(n, args.backend, dict(K=K, P=P, Q=Q, seed=args.seed), cost_before,
+                            t_err0, gt[1], args.iters, args.cg_iters, args.lm_lambda)
+        check(res)
+        runs.append(res)
+    print(json.dumps({"metric": "config#5 large-map BA (synthetic)", "keyframes": K,
+                      "landmarks": P, "observations": P * Q, "build_s": build_s,
+                      "device": device_line(), "runs": runs}))
     return 0
 
 

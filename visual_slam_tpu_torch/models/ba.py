@@ -15,7 +15,14 @@ of U and g_c, which the JAX package writes as one-hot matmuls, go through
 kernels B5 (`cam_expand`) and B4 (`cam_reduce`) of ops/kernels/seg_kernel.
 The coupling W (6,3,K,P) and the explicit reduced camera system with its
 dense Cholesky (solver="chol") are plain torch: no Pallas kernel computed
-them. The landmark-sharded form (`axis_name`, `_psum`) is not ported.
+them.
+
+Landmark sharding (parallel/sharded_ba.py): each rank of a torch.distributed
+process group holds a contiguous block of landmarks and their slots, and the
+camera side whole. `group` names the group; `_allreduce` sums a rank's
+partial camera-side terms at the JAX package's psum points (the cost, U and
+g_c, the reduced system, each matvec's landmark term). Replicated terms (the
+scale edges, the damping, the gauge masks) are added once, after the sum.
 
 `optimize` is branch-free like the JAX scan: the LM accept/reject selects
 with `torch.where`, so an LM iteration never waits for the device.
@@ -26,11 +33,15 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..ops import lie
 from ..ops.kernels import seg_kernel
 
 HUBER_DELTA = 2.4477  # sqrt(5.991), reference LocalBA.py:82
+
+allreduce_calls = 0  # _allreduce calls over a group (ba, ba_large, pose_graph)
+allreduce_bytes = 0  # the bytes they summed
 
 
 class BAProblem(NamedTuple):
@@ -271,8 +282,22 @@ def scale_edge_cost(p: BAProblem) -> torch.Tensor:
     return torch.sum(p.se_w * r_s * r_s)
 
 
-def _cost(p: BAProblem, use_depth: bool = False) -> torch.Tensor:
-    """Robust (Huber) total cost, a 0-d tensor."""
+def _allreduce(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum `x` over the ranks of `group` (the JAX package's psum over the
+    mesh axis). With no group: `x` itself, and nothing is launched."""
+    global allreduce_calls, allreduce_bytes
+    if group is None:
+        return x
+    x = x.contiguous()
+    dist.all_reduce(x, group=group)
+    allreduce_calls += 1
+    allreduce_bytes += x.numel() * x.element_size()
+    return x
+
+
+def _cost(p: BAProblem, use_depth: bool = False, group=None) -> torch.Tensor:
+    """Robust (Huber) total cost, a 0-d tensor (summed over `group`'s
+    landmark shards; the replicated scale edges are added once)."""
     r, Xc, Rg, iz, _ = _project_planar(p)
     zmask = (Xc[2] > 1e-6).to(p.w.dtype)
     cost = torch.sum(p.w * zmask * huber_rho(torch.sum(r * r, dim=0)))
@@ -283,7 +308,7 @@ def _cost(p: BAProblem, use_depth: bool = False) -> torch.Tensor:
             rd_abs <= HUBER_DELTA, r_d * r_d, 2.0 * HUBER_DELTA * rd_abs - HUBER_DELTA**2
         )
         cost = cost + torch.sum(p.dw * zmask * (p.dinv > 0) * rho_d)
-    return cost + scale_edge_cost(p)
+    return _allreduce(cost, group) + scale_edge_cost(p)
 
 
 def reproj_errors(p: BAProblem):
@@ -339,12 +364,13 @@ def scale_edge_blocks(p: BAProblem, U: torch.Tensor, g_c: torch.Tensor):
     return U, g_c, H_ij
 
 
-def _build_planar(p: BAProblem, lm_lambda, plan, use_depth: bool = False):
+def _build_planar(p: BAProblem, lm_lambda, plan, use_depth: bool = False, group=None):
     """All Hessian pieces in one pass over the slot planes: U (K,6,6) damped
     (scale edges folded in), V_inv (3,3,P), g_c (K,6), g_p (3,P),
     W (6,3,K,P), H_ij (E,6,6), and the (Jc, Jp, w_irls) planes. `plan`:
     B4's reduce plan of p.cam (seg_kernel.reduce_plan), built once per
-    problem by the caller; a CPU problem never reads it (None will do)."""
+    problem by the caller; a CPU problem never reads it (None will do).
+    U and g_c are summed over `group`; V_inv, g_p and W stay local."""
     K = p.R.shape[0]
     P = p.X.shape[0]
     N = p.cam.shape[0]
@@ -369,6 +395,7 @@ def _build_planar(p: BAProblem, lm_lambda, plan, use_depth: bool = False):
         WO = WO + wJd_c[:, None, :] * Jd_p[None, :, :]
     # B4: the 36 U entries and 6 gradient rows in one (42,N) -> (42,K) reduce.
     red = seg_kernel.cam_reduce(torch.cat([UO.reshape(36, N), gcn]), p.cam, K, plan)
+    red = _allreduce(red, group)
     U = red[:36].T.reshape(K, 6, 6)
     g_c = red[36:42].T
     V = VO.reshape(3, 3, P, Q).sum(-1)
@@ -385,7 +412,7 @@ def _mask_cam(x: torch.Tensor, cam_fixed: torch.Tensor) -> torch.Tensor:
     return x * (~cam_fixed)[:, None].to(x.dtype)
 
 
-def _solve_chol(p, U, V_inv, g_c, g_p, W, H_ij):
+def _solve_chol(p, U, V_inv, g_c, g_p, W, H_ij, group=None):
     """Explicit reduced camera system S = U - W V^-1 W^T, (K,6,K,6), and a
     dense Cholesky solve (the online path, K up to ~128)."""
     K = U.shape[0]
@@ -393,6 +420,8 @@ def _solve_chol(p, U, V_inv, g_c, g_p, W, H_ij):
     S_red = torch.einsum("ackp,cblp->kalb", W, Y)  # (K,6,K,6)
     Vg = torch.einsum("dcp,cp->dp", V_inv, g_p)
     b_sub = torch.einsum("ackp,cp->ka", W, Vg)
+    S_red = _allreduce(S_red, group)
+    b_sub = _allreduce(b_sub, group)
     eyeK = torch.eye(K, dtype=U.dtype, device=U.device)
     S = U[:, :, None, :] * eyeK[:, None, :, None] - S_red
     # Scale-edge cross blocks into S[i,:,j,:] and their transposes, on the
@@ -416,13 +445,14 @@ def _solve_chol(p, U, V_inv, g_c, g_p, W, H_ij):
     return _mask_cam(delta_c, p.cam_fixed)
 
 
-def _schur_matvec_planar(x, p, U, V_inv, W, H_ij):
-    """y = S x applied implicitly (solver="cg"): one W contraction each way."""
+def _schur_matvec_planar(x, p, U, V_inv, W, H_ij, group=None):
+    """y = S x applied implicitly (solver="cg"): one W contraction each way.
+    W^T x is landmark-local; only the camera-side W term is summed."""
     x = _mask_cam(x, p.cam_fixed)
     y = torch.einsum("kij,kj->ki", U, x)
     bp = torch.einsum("ackp,ka->cp", W, x)
     cp = torch.einsum("dcp,cp->dp", V_inv, bp)
-    y = y - torch.einsum("ackp,cp->ka", W, cp)
+    y = y - _allreduce(torch.einsum("ackp,cp->ka", W, cp), group)
     y = add_cross_blocks(y, x, p, H_ij)
     return _mask_cam(y, p.cam_fixed)
 
@@ -460,14 +490,14 @@ def _pcg(matvec, precond, b, n_iters: int):
     return x
 
 
-def _solve_cg(p, U, V_inv, g_c, g_p, W, H_ij, cg_iters):
+def _solve_cg(p, U, V_inv, g_c, g_p, W, H_ij, cg_iters, group=None):
     Vg = torch.einsum("dcp,cp->dp", V_inv, g_p)
-    b_sub = torch.einsum("ackp,cp->ka", W, Vg)
+    b_sub = _allreduce(torch.einsum("ackp,cp->ka", W, Vg), group)
     b = _mask_cam(-(g_c - b_sub), p.cam_fixed)
     U_inv = _inv6(U)
 
     def matvec(x):
-        return _schur_matvec_planar(x, p, U, V_inv, W, H_ij)
+        return _schur_matvec_planar(x, p, U, V_inv, W, H_ij, group)
 
     def precond(x):
         return _mask_cam(torch.einsum("kij,kj->ki", U_inv, x), p.cam_fixed)
@@ -476,17 +506,18 @@ def _solve_cg(p, U, V_inv, g_c, g_p, W, H_ij, cg_iters):
 
 
 def _solve_delta(p: BAProblem, lm_lambda, cg_iters, points_fixed, plan, solver="chol",
-                 use_depth: bool = False):
+                 use_depth: bool = False, group=None):
     """One damped normal-equation solve: (delta_c (K,6), delta_p (P,3))."""
-    U, V_inv, g_c, g_p, W, H_ij, _ = _build_planar(p, lm_lambda, plan, use_depth=use_depth)
+    U, V_inv, g_c, g_p, W, H_ij, _ = _build_planar(p, lm_lambda, plan, use_depth=use_depth,
+                                                   group=group)
     g_c = _mask_cam(g_c, p.cam_fixed)
     if points_fixed:
         delta_c = -torch.einsum("kij,kj->ki", _inv6(U), g_c)
         return _mask_cam(delta_c, p.cam_fixed), torch.zeros_like(p.X)
     if solver == "chol":
-        delta_c = _solve_chol(p, U, V_inv, g_c, g_p, W, H_ij)
+        delta_c = _solve_chol(p, U, V_inv, g_c, g_p, W, H_ij, group)
     else:
-        delta_c = _solve_cg(p, U, V_inv, g_c, g_p, W, H_ij, cg_iters)
+        delta_c = _solve_cg(p, U, V_inv, g_c, g_p, W, H_ij, cg_iters, group)
     # Back-substitute landmarks: delta_p = -V^-1 (g_p + W^T delta_c).
     back = torch.einsum("ackp,ka->cp", W, delta_c)
     dp = -torch.einsum("dcp,cp->dp", V_inv, g_p + back)
@@ -503,7 +534,9 @@ def _apply(p: BAProblem, delta_c, delta_p) -> BAProblem:
 def lm_loop(p: BAProblem, n_iters: int, init_lambda: float, solve, cost_fn):
     """The LM accept/reject loop both solvers share, branch-free: a worse
     candidate is dropped with torch.where and the damping grows 4x; a better
-    one is kept and the damping halves. Returns (problem, cost)."""
+    one is kept and the damping halves. Returns (problem, cost). In a
+    landmark-sharded solve the cost is summed over the ranks, so every rank
+    takes the same decision on the device and none reads its cost."""
     cost = cost_fn(p)
     lam = torch.full((), init_lambda, dtype=p.R.dtype, device=p.R.device)  # no host copy
     for _ in range(n_iters):
@@ -523,20 +556,24 @@ def lm_loop(p: BAProblem, n_iters: int, init_lambda: float, solve, cost_fn):
 
 def optimize(p: BAProblem, n_iters: int = 10, cg_iters: int = 12,
              points_fixed: bool = False, init_lambda: float = 1e-4,
-             solver: str = "chol", use_depth: bool = False):
+             solver: str = "chol", use_depth: bool = False, group=None):
     """Levenberg-Marquardt (optimizer.optimize(10), LocalBA.py:39-42) on a
     fixed iteration count. Returns (optimized problem, final cost).
 
     solver: "chol" (explicit reduced system, dense Cholesky) or "cg"
     (implicit Schur matvec, block-Jacobi PCG of `cg_iters` steps). The
-    camera index is fixed, so one B4 reduce plan serves every iteration."""
+    camera index is fixed, so one B4 reduce plan serves every iteration.
+
+    group: a torch.distributed process group over which `p`'s landmarks are
+    sharded (parallel/sharded_ba.optimize_sharded), or None."""
     if solver not in ("chol", "cg"):
         raise ValueError(f"solver must be 'chol' or 'cg', not {solver!r}")
     plan = seg_kernel.reduce_plan(p.cam, p.R.shape[0])
     return lm_loop(
         p, n_iters, init_lambda,
-        lambda q, lam: _solve_delta(q, lam, cg_iters, points_fixed, plan, solver, use_depth),
-        lambda q: _cost(q, use_depth),
+        lambda q, lam: _solve_delta(q, lam, cg_iters, points_fixed, plan, solver, use_depth,
+                                    group),
+        lambda q: _cost(q, use_depth, group),
     )
 
 

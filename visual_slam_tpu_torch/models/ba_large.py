@@ -22,8 +22,12 @@ initial cost, then per LM iteration the projection of the build, g matvecs,
 the landmark back-substitution and the candidate's cost) and B4 n*(g+2)
 times (the build's 27-row reduce, the right-hand side and g matvecs).
 
-The landmark-sharded form (parallel/sharded_ba.optimize_large_sharded) is
-not ported: one H100 holds config #5 whole.
+Landmark sharding (parallel/sharded_ba.optimize_large_sharded): with a
+`group`, each rank holds a block of landmarks and their slots, builds its own
+B4 plan over its slots, and `ba._allreduce` sums the cost, the build's
+27-row reduce, each matvec's y2 and the right-hand side's b_sub, the JAX
+package's psum points; the scale edges and the damping are added once,
+after the sum.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ from .ba import (
     BAProblem,
     _inv6,
     _mask_cam,
+    _allreduce,
     _pcg,
     add_cross_blocks,
     cam_rows,
@@ -111,12 +116,12 @@ def _jacobians(Xc, Rn, iz, intr):
     return Jc, Jp
 
 
-def _cost(p: BAProblem) -> torch.Tensor:
-    """Robust (Huber) total cost, a 0-d tensor."""
+def _cost(p: BAProblem, group=None) -> torch.Tensor:
+    """Robust (Huber) total cost, a 0-d tensor (summed over `group`)."""
     r, Xc, _, _, _ = _project(p)
     zmask = (Xc[2] > 1e-6).to(p.w.dtype)
     cost_obs = torch.sum(p.w * zmask * huber_rho(r[0] * r[0] + r[1] * r[1]))
-    return cost_obs + scale_edge_cost(p)
+    return _allreduce(cost_obs, group) + scale_edge_cost(p)
 
 
 # Upper-triangle index pairs of a 6x6 block (21 entries), and for each of
@@ -143,11 +148,11 @@ def _inv3_rows(V9: torch.Tensor) -> torch.Tensor:
     return torch.stack([A, B, C, D, E, F, G, H, I]) / det
 
 
-def _build(p: BAProblem, lm_lambda, plan):
+def _build(p: BAProblem, lm_lambda, plan, group=None):
     """Hessian pieces, memory linear in N: U (K,6,6) damped, V_inv (9,P),
     g_c (K,6), g_p (3,P), WO (18,N), H_ij (E,6,6) scale-edge cross blocks.
     `plan`: B4's reduce plan of p.cam, built once per problem by the caller
-    (a CPU problem never reads it)."""
+    (a CPU problem never reads it). U and g_c are summed over `group`."""
     K = p.R.shape[0]
     P = p.X.shape[0]
     r, Xc, Rn, iz, w_irls = _project(p)
@@ -159,7 +164,7 @@ def _build(p: BAProblem, lm_lambda, plan):
     # rows, stacked (27,N).
     u_rows = [wJc[i] * Jc[j] + wJc[6 + i] * Jc[6 + j] for (i, j) in _TRIU6]
     g_rows = [wJc[i] * r[0] + wJc[6 + i] * r[1] for i in range(6)]
-    red = _cred(torch.stack(u_rows + g_rows), p.cam, K, plan)  # (27,K)
+    red = _allreduce(_cred(torch.stack(u_rows + g_rows), p.cam, K, plan), group)  # (27,K)
     U = torch.stack([red[k] for k in _SYM36], dim=1).reshape(K, 6, 6)
     g_c = red[21:27].T
 
@@ -195,7 +200,7 @@ def _vinv_apply(V_inv: torch.Tensor, t_p: torch.Tensor) -> torch.Tensor:
     return torch.stack([sum(V_inv[3 * i + j] * t_p[j] for j in range(3)) for i in range(3)])
 
 
-def _schur_matvec(x, p, U, V_inv, WO, H_ij, plan):
+def _schur_matvec(x, p, U, V_inv, WO, H_ij, plan, group=None):
     """y = (U - W V^-1 W^T) x without forming S: a camera expand, two per-slot
     contractions, a point reduce and expand, one camera reduce."""
     K = U.shape[0]
@@ -206,16 +211,16 @@ def _schur_matvec(x, p, U, V_inv, WO, H_ij, plan):
     xc6 = _cexp(x.T, p.cam)  # (6,N)
     t1p = _point_sum(_wt_apply(WO, xc6), P)  # (3,P)
     t2n = _point_expand(_vinv_apply(V_inv, t1p), N)  # (3,N)
-    y2 = _cred(_w_apply(WO, t2n), p.cam, K, plan)  # (6,K)
+    y2 = _allreduce(_cred(_w_apply(WO, t2n), p.cam, K, plan), group)  # (6,K)
     y = add_cross_blocks(y - y2.T, x, p, H_ij)
     return _mask_cam(y, p.cam_fixed)
 
 
-def _solve_delta(p, lm_lambda, cg_iters, points_fixed, plan):
+def _solve_delta(p, lm_lambda, cg_iters, points_fixed, plan, group=None):
     K = p.R.shape[0]
     P = p.X.shape[0]
     N = p.cam.shape[0]
-    U, V_inv, g_c, g_p, WO, H_ij = _build(p, lm_lambda, plan)
+    U, V_inv, g_c, g_p, WO, H_ij = _build(p, lm_lambda, plan, group)
     g_c = _mask_cam(g_c, p.cam_fixed)
     U_inv = _inv6(U)
 
@@ -224,11 +229,11 @@ def _solve_delta(p, lm_lambda, cg_iters, points_fixed, plan):
         return _mask_cam(delta_c, p.cam_fixed), torch.zeros_like(p.X)
 
     Vg_n = _point_expand(_vinv_apply(V_inv, g_p), N)
-    b_sub = _cred(_w_apply(WO, Vg_n), p.cam, K, plan)  # (6,K)
+    b_sub = _allreduce(_cred(_w_apply(WO, Vg_n), p.cam, K, plan), group)  # (6,K)
     b = _mask_cam(-(g_c - b_sub.T), p.cam_fixed)
 
     def matvec(x):
-        return _schur_matvec(x, p, U, V_inv, WO, H_ij, plan)
+        return _schur_matvec(x, p, U, V_inv, WO, H_ij, plan, group)
 
     def precond(x):
         return _mask_cam(torch.einsum("kij,kj->ki", U_inv, x), p.cam_fixed)
@@ -242,14 +247,15 @@ def _solve_delta(p, lm_lambda, cg_iters, points_fixed, plan):
 
 
 def optimize(p: BAProblem, n_iters: int = 10, cg_iters: int = 12,
-             points_fixed: bool = False, init_lambda: float = 1e-4):
+             points_fixed: bool = False, init_lambda: float = 1e-4, group=None):
     """LM loop with the accept/reject structure of ba.optimize and the
     large-map solve. Returns (optimized problem, final cost as a 0-d
     tensor). Branch-free: no host read inside the loop. The camera index is
-    fixed, so one B4 reduce plan serves all n*(g+2) reduces."""
+    fixed, so one B4 reduce plan serves all n*(g+2) reduces. `group`: as
+    in ba.optimize; each rank's plan covers its own slots."""
     plan = seg_kernel.reduce_plan(p.cam, p.R.shape[0])
     return lm_loop(
         p, n_iters, init_lambda,
-        lambda q, lam: _solve_delta(q, lam, cg_iters, points_fixed, plan),
-        _cost,
+        lambda q, lam: _solve_delta(q, lam, cg_iters, points_fixed, plan, group),
+        lambda q: _cost(q, group),
     )

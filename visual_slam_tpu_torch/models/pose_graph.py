@@ -1,7 +1,6 @@
 """Pose-graph optimisation: Gauss-Newton over SE(3) relative-pose edges and
 scale edges, and the 7-DoF Sim(3) graph of monocular loop correction (port
-of visual_slam_tpu/models/pose_graph.py:1-570, without its g2o I/O and its
-sharded `axis_name` mode).
+of visual_slam_tpu/models/pose_graph.py:1-570; the g2o I/O is utils/g2o_io).
 
 The replacement for the reference's g2o pose-graph pieces:
 `add_edge_between_poses` (EdgeSE3 with a DCS robust kernel, LocalBA.py:97-113)
@@ -31,6 +30,12 @@ the gradient rows; per CG iteration one B5 gathers the search direction at
 the far end of each slot's edge and one B4 sums the off-diagonal products.
 Float atomics (`index_add_` on CUDA) would make card runs differ; B4 adds in
 the order its plan fixes.
+
+Edge sharding (parallel/sharded_pg.py): with a `group`, each rank holds a
+block of the SE3 and scale edge tables and every pose; `optimize` sums the
+block diagonal and gradient, each CG matvec's off-diagonal term and the
+cost over the group (ba._allreduce, the JAX package's psum points); the
+damping and the fixed vertices' masks act once, after the sum.
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ import torch
 
 from ..ops import lie
 from ..ops.kernels import seg_kernel
+from .ba import _allreduce
 
 # The JAX package's defaults (models/pose_graph.py: optimize, optimize_sim3
 # and optimize_dense), which no caller changes.
@@ -214,11 +220,11 @@ def _block_inverse(D: torch.Tensor) -> torch.Tensor:
     return torch.linalg.solve_ex(Dk, eye)[0].permute(1, 2, 0)
 
 
-def _pcg(D, D_inv, grad, offb, ids, swap, plan, free, cg_iters):
+def _pcg(D, D_inv, grad, offb, ids, swap, plan, free, cg_iters, group=None):
     """Block-Jacobi PCG on the normal system, vectors planar (n,K). D,
     D_inv (n,n,K); offb (n,n,N): each slot's off-diagonal block, which
     multiplies the direction at the slot's far endpoint (`swap`) and sums
-    into its own vertex (`ids`)."""
+    into its own vertex (`ids`); with a `group`, summed over its ranks."""
     K = D.shape[-1]
 
     def mv(A, x):  # planar block products: (n,n,M) x (n,M) -> (n,M)
@@ -227,7 +233,7 @@ def _pcg(D, D_inv, grad, offb, ids, swap, plan, free, cg_iters):
     def matvec(x):
         x = x * free
         xs = seg_kernel.cam_expand(x.contiguous(), swap)  # B5: x at the far ends
-        off = seg_kernel.cam_reduce(mv(offb, xs), ids, K, plan)
+        off = _allreduce(seg_kernel.cam_reduce(mv(offb, xs), ids, K, plan), group)
         return (mv(D, x) + off) * free
 
     def precond(x):
@@ -256,10 +262,14 @@ def _planar(blocks: torch.Tensor) -> torch.Tensor:
     return blocks.reshape(blocks.shape[0], -1).T
 
 
-def optimize(g: PoseGraph, n_iters: int = 12, cg_iters: int = 32, use_dcs: bool = True):
+def optimize(g: PoseGraph, n_iters: int = 12, cg_iters: int = 32, use_dcs: bool = True,
+             group=None):
     """Scalable pose-graph Gauss-Newton: analytic Jacobian blocks +
     block-Jacobi-preconditioned CG on the 6K normal system, with a DCS
-    robust kernel on the SE3 edges. Returns (R, t, final cost)."""
+    robust kernel on the SE3 edges. Returns (R, t, final cost).
+
+    group: a torch.distributed process group over which the edge tables are
+    sharded (parallel/sharded_pg.optimize_sharded), or None."""
     K = g.R.shape[0]
     E, S = g.e_i.shape[0], g.s_i.shape[0]
     free = (~g.fixed).to(g.R.dtype)[None]  # (1,K)
@@ -289,14 +299,16 @@ def optimize(g: PoseGraph, n_iters: int = 12, cg_iters: int = 32, use_dcs: bool 
         blocks = torch.cat([H_ii, H_jj, torch.einsum("ei,ej->eij", wSi, Si),
                             torch.einsum("ei,ej->eij", wSj, Sj)])
         grads = torch.cat([g_i, g_j, wSi * rs[:, None], wSj * rs[:, None]])
-        red = seg_kernel.cam_reduce(torch.cat([_planar(blocks), grads.T]).contiguous(), ids, K, plan)
+        red = _allreduce(seg_kernel.cam_reduce(torch.cat([_planar(blocks), grads.T]).contiguous(),
+                                               ids, K, plan), group)
         D = red[:36].reshape(6, 6, K) + DAMPING * eye6[:, :, None]
         grad = red[36:] * free
         Hs_ij = torch.einsum("ei,ej->eij", wSi, Sj)  # scale cross blocks
         offb = torch.cat([H_ij, _T(H_ij), Hs_ij, _T(Hs_ij)]).permute(1, 2, 0)
-        delta = _pcg(D, _block_inverse(D), grad, offb, ids, swap, plan, free, cg_iters)
+        delta = _pcg(D, _block_inverse(D), grad, offb, ids, swap, plan, free, cg_iters, group)
         R, t = _apply_delta(R, t, delta.T)
-        cost = torch.sum(w_e * torch.sum(r * r, -1)) + torch.sum(g.s_w * rs * rs)
+        cost = _allreduce(torch.sum(w_e * torch.sum(r * r, -1)) + torch.sum(g.s_w * rs * rs),
+                          group)
     return R, t, cost
 
 

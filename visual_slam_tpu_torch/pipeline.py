@@ -2,7 +2,10 @@
 PnP tracking with re-tracking and relocalisation, keyframe insertion with
 landmark mining, culling, keyframe-cadence bundle adjustment, loop closure
 and the final pose-graph pass (port of visual_slam_tpu/pipeline.py:347-593,
-:651-2400, :3125-3174).
+:651-2400, :3125-3279), and the command line:
+
+    python -m visual_slam_tpu_torch.pipeline --data DIR --frames 60 --rgbd \
+        --pose-graph --export-ply map.ply --export-g2o graph.g2o --checkpoint map.npz
 
 The re-architecture of the reference's main loop `src/v2/main.py:53-353`: the
 same stage semantics and gates (SURVEY.md §3.1-3.4), with every per-frame
@@ -1180,15 +1183,110 @@ class Slam:
 
 
 def run_sequence(dataset, config: SlamConfig | None = None, start: int = 0,
-                 stop: int | None = None, device="cuda") -> Slam:
+                 stop: int | None = None, device="cuda", verbose: bool = False,
+                 on_frame=None) -> Slam:
     """Run SLAM serially over a dataset (any object with the reader's
     `frames(start, stop)` -> (idx, gray, depth) interface); returns the Slam.
     Without a config, the capacities are sized to the frame range
     (size_config_for; the range's end is `len(dataset)` when `stop` is
-    None)."""
+    None). `on_frame(slam, i)` is called after each frame (utils.viz.LiveView
+    is one); `verbose` prints a progress line every 25th frame."""
     if config is None:
         config = size_config_for((stop if stop is not None else len(dataset)) - start)
     slam = Slam(config, device=device)
     for i, gray, depth in dataset.frames(start, stop):
         slam.process(i, gray, depth)
+        if on_frame is not None:
+            on_frame(slam, i)
+        if verbose and i % 25 == 0:
+            last = slam.trajectory[-1] if slam.trajectory else None
+            print(f"frame {i}: tracked={getattr(last, 'n_tracked', 0)} "
+                  f"kf={slam.stats['keyframes']} pts={slam.map.n_pt} init={slam.initialized}")
     return slam
+
+
+def main(argv=None) -> dict:
+    """The command line: run SLAM over an ICL-NUIM-layout directory and print
+    one JSON line (frames, fps, keyframes, points, init_frame, ate_rmse_m
+    and the paths of the artifacts written). Returns that dict."""
+    import argparse
+    import json
+    import time
+
+    from .utils import evaluate
+    from .utils.dataset import ICLNUIMDataset
+
+    ap = argparse.ArgumentParser(description="visual SLAM on one GPU (PyTorch / CUDA)")
+    ap.add_argument("--data", required=True, help="ICL-NUIM-layout directory")
+    ap.add_argument("--frames", type=int, default=200)
+    ap.add_argument("--start", type=int, default=0)
+    ap.add_argument("--features", type=int, default=1024)
+    ap.add_argument("--device", default="cuda", help="torch device; cpu for the CPU")
+    ap.add_argument("--verbose", action="store_true")
+    ap.add_argument("--rgbd", action="store_true", help="metric RGB-D mode")
+    ap.add_argument("--pose-graph", action="store_true", help="final pose-graph refinement")
+    ap.add_argument("--live-dump", default=None,
+                    help="directory for incremental trajectory.png/map.ply/state.json "
+                    "during the run (headless live viewer)")
+    ap.add_argument("--live-every", type=int, default=25, help="live-dump period (frames)")
+    ap.add_argument("--export-traj", default=None, help="PNG trajectory plot path")
+    ap.add_argument("--export-ply", default=None, help="PLY map export path")
+    ap.add_argument("--export-g2o", default=None, help="g2o graph export path")
+    ap.add_argument("--checkpoint", default=None, help="npz map checkpoint path")
+    args = ap.parse_args(argv)
+
+    ds = ICLNUIMDataset(args.data)
+    cfg = size_config_for(args.frames)
+    cfg.frontend.max_features = args.features
+    cfg.use_depth = args.rgbd
+    gt = ds.ground_truth()
+    on_frame = None
+    if args.live_dump:
+        from .utils import viz
+
+        on_frame = viz.LiveView(args.live_dump, every=args.live_every,
+                                gt_positions=gt[:, :3, 3] if gt is not None else None)
+    t0 = time.time()
+    slam = run_sequence(ds, cfg, args.start, args.start + args.frames, device=args.device,
+                        verbose=args.verbose, on_frame=on_frame)
+    if args.pose_graph and slam.initialized:
+        slam.optimize_pose_graph()
+    dt = time.time() - t0
+    idxs, est = slam.positions()
+    out = {
+        "frames": len(idxs),
+        "fps": len(idxs) / dt,
+        "keyframes": slam.stats["keyframes"],
+        "points": int(slam.map.pt_valid.sum()),
+        "init_frame": slam.stats["init_frame"],
+    }
+    gt_pos = gt[np.clip(idxs, 0, len(gt) - 1), :3, 3] if gt is not None else None
+    if gt_pos is not None:
+        out["ate_rmse_m"] = evaluate.ate_rmse(est, gt_pos, align_scale=not args.rgbd)[0]
+    if args.export_traj:
+        from .utils import viz
+
+        viz.plot_trajectory(est, gt_pos, args.export_traj)
+        out["trajectory_png"] = args.export_traj
+    if args.export_ply:
+        from .utils import viz
+
+        viz.save_ply(args.export_ply, slam.map.pt_xyz, valid=slam.map.pt_valid)
+        out["map_ply"] = args.export_ply
+    if args.export_g2o:
+        from .utils import g2o_io
+
+        g2o_io.save_pose_graph(args.export_g2o, slam.map.kf_R, slam.map.kf_t, slam.map.kf_valid,
+                               points=slam.map.pt_xyz, point_valid=slam.map.pt_valid)
+        out["g2o"] = args.export_g2o
+    if args.checkpoint:
+        from .utils import checkpoint
+
+        checkpoint.save_map(args.checkpoint, slam.map, est)
+        out["checkpoint"] = args.checkpoint
+    print(json.dumps(out))
+    return out
+
+
+if __name__ == "__main__":
+    main()

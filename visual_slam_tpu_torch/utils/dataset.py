@@ -211,3 +211,31 @@ def tum_rows_to_matrices(rows: np.ndarray) -> np.ndarray:
     T[:, :3, :3] = R
     T[:, :3, 3] = t
     return T.astype(np.float64)
+
+
+def write_icl_nuim(root: str, frames, ground_truth: np.ndarray | None = None) -> str:
+    """Write (idx, gray, depth) frames in the layout ICLNUIMDataset reads:
+    rgb/<idx>.png (8-bit, the gray level in all three channels),
+    depth/<idx>.png (16-bit, metres x DEPTH_SCALE), associations.txt and,
+    with (N,4,4) camera->world `ground_truth`, traj3.gt.freiburg (TUM rows
+    numbered from 1, one per frame). Returns `root`."""
+    from PIL import Image
+    from scipy.spatial.transform import Rotation
+
+    for sub in ("rgb", "depth"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    lines = []
+    for i, gray, depth in frames:
+        g8 = np.clip(np.round(np.asarray(gray) * 255.0), 0, 255).astype(np.uint8)
+        Image.fromarray(np.repeat(g8[..., None], 3, axis=-1)).save(os.path.join(root, "rgb", f"{i}.png"))
+        d16 = np.clip(np.round(np.asarray(depth) * DEPTH_SCALE), 0, 65535).astype(np.uint16)
+        Image.fromarray(d16).save(os.path.join(root, "depth", f"{i}.png"))
+        lines.append(f"{i} depth/{i}.png {i} rgb/{i}.png")
+    with open(os.path.join(root, "associations.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    if ground_truth is not None:
+        T = np.asarray(ground_truth)
+        rows = np.concatenate([np.arange(1, len(T) + 1)[:, None], T[:, :3, 3],
+                               Rotation.from_matrix(T[:, :3, :3]).as_quat()], axis=1)
+        np.savetxt(os.path.join(root, "traj3.gt.freiburg"), rows)
+    return root

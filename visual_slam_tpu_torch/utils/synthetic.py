@@ -1,7 +1,8 @@
 """Synthetic bundle-adjustment problems: the large map of BASELINE.json
 config #5 (port of visual_slam_tpu/utils/synthetic.py) and the small arc of
 the online-BA tests; a 5,000-keyframe pose graph (`big_pose_graph`, the
-draws of tests/test_pose_graph.py:158 `make_big_graph`); and `RingScene`, a drifted keyframe ring loaded into a
+draws of tests/test_pose_graph.py:158 `make_big_graph`); the small problem of
+the multi-process BA test (`multihost_problem`); and `RingScene`, a drifted keyframe ring loaded into a
 Slam, on which a loop closure is decided (port of
 tests/test_loop_operating_point.py:73-216, drawn in the same order).
 
@@ -151,6 +152,35 @@ def arc_problem(K: int = 6, P: int = 300, noise_px: float = 0.0, pose_noise: flo
         w=np.ones(K * P, np.float32), intr=INTR, cam_fixed=cam_fixed, device=device,
     )
     return prob, (R_gt, t_gt, X)
+
+
+def multihost_problem(K: int = 4, n_pts: int = 64, noise: float = 0.03, seed: int = 0,
+                      device="cuda"):
+    """The deterministic BA problem of the multi-process test (port of
+    scripts/multihost_ba_worker.py:synthetic_problem, the same draws of
+    `np.random.RandomState(seed)`): K cameras translating along x, every
+    camera seeing every point, camera 0 exact and fixed. Returns the
+    BAProblem on `device`."""
+    rng = np.random.RandomState(seed)
+    X_gt = rng.uniform(-1, 1, (n_pts, 3)).astype(np.float32)
+    X_gt[:, 2] += 4.0
+    R = np.tile(np.eye(3, dtype=np.float32), (K, 1, 1))
+    t = np.stack([np.array([0.4 * k, 0.05 * k, 0.0], np.float32) for k in range(K)])
+    intr = np.array([480.0, 480.0, 320.0, 240.0], np.float32)
+    cam = np.repeat(np.arange(K), n_pts).astype(np.int32)
+    pnt = np.tile(np.arange(n_pts), K).astype(np.int32)
+    Xc = (np.einsum("kij,nj->kni", R, X_gt) + t[:, None, :]).reshape(-1, 3)
+    uv = np.stack([intr[0] * Xc[:, 0] / Xc[:, 2] + intr[2],
+                   intr[1] * Xc[:, 1] / Xc[:, 2] + intr[3]], -1).astype(np.float32)
+    uv += rng.normal(0, 0.3, uv.shape).astype(np.float32)
+    X0 = X_gt + rng.normal(0, noise, X_gt.shape).astype(np.float32)
+    cam_fixed = np.zeros(K, bool)
+    cam_fixed[0] = True
+    t0 = t + rng.normal(0, 0.01, t.shape).astype(np.float32)
+    t0[0] = t[0]
+    prob, _ = make_problem(R=R, t=t0, X=X0, cam=cam, pnt=pnt, uv=uv, w=np.ones(len(cam), np.float32),
+                           intr=intr, cam_fixed=cam_fixed, device=device)
+    return prob
 
 
 def big_pose_graph(K: int = 5000, device="cuda"):
