@@ -16,7 +16,7 @@ from visual_slam_tpu_torch.config import SlamConfig
 from visual_slam_tpu_torch.models import frontend
 from visual_slam_tpu_torch.models import ba, ba_large, loop_closure, pose_graph
 from visual_slam_tpu_torch.ops.kernels import build, detect_kernel, patch_kernel, seg_kernel
-from visual_slam_tpu_torch.pipeline import Slam, run_sequence
+from visual_slam_tpu_torch.pipeline import Slam, run_pipelined, run_sequence
 from visual_slam_tpu_torch.utils import synthetic
 from visual_slam_tpu_torch.utils.evaluate import ate_rmse
 from visual_slam_tpu_torch.utils.scene import SyntheticRGBDScene
@@ -209,6 +209,48 @@ def test_slam_card_runs_repeat(cuda):
         assert (fa.frame_idx, fa.is_keyframe) == (fb.frame_idx, fb.is_keyframe)
         assert np.array_equal(fa.R_cw, fb.R_cw) and np.array_equal(fa.t_cw, fb.t_cw)
     assert np.array_equal(sa.map.pt_xyz, sb.map.pt_xyz)
+
+
+@pytest.mark.parametrize("mode", ["rgbd", "mono"])
+def test_pipelined_card_matches_cpu_and_repeats(cuda, mode):
+    """run_pipelined (depth 8) over the scenes of test_slam_card_matches_cpu,
+    twice on the card and once on the CPU. The two card runs: the same
+    trajectory, stats and map, bit for bit (every decision of the driver is
+    a count). Card against CPU: RGB-D, the same history and stats, centres
+    within BA_T_ATOL; monocular, the same init frame, re-anchors and
+    trajectory frames, and each run's health bars. Frames posed by
+    PnP-RANSAC take the device generator's draws (the CPU's differ), so the
+    monocular poses are not compared."""
+    intr = np.array([240.6, 240.0, 159.75, 119.75], np.float32)
+    n_frames, stride = (60, 1) if mode == "rgbd" else (178, 3)
+    scene = SyntheticRGBDScene(n_frames, 240, 320, intrinsics=intr)
+    frames = [(i, *scene.render(i)) for i in range(0, n_frames, stride)]
+    if mode == "mono":
+        frames = [(i, gray, None) for i, gray, _ in frames]
+    runs = []
+    for device in (cuda, cuda, "cpu"):
+        cfg = SlamConfig(use_depth=mode == "rgbd", intrinsics=intr)
+        cfg.frontend.max_features = 256
+        cfg.map.track_capacity = 512
+        runs.append(run_pipelined(Slam(cfg, device=device), iter(frames), 8))
+    sa, sb, sc = runs
+    assert sa.stats == sb.stats and len(sa.trajectory) == len(sb.trajectory)
+    for fa, fb in zip(sa.trajectory, sb.trajectory):
+        assert (fa.frame_idx, fa.is_keyframe, fa.n_tracked) == (fb.frame_idx, fb.is_keyframe, fb.n_tracked)
+        assert np.array_equal(fa.R_cw, fb.R_cw) and np.array_equal(fa.t_cw, fb.t_cw)
+    assert np.array_equal(sa.map.pt_xyz, sb.map.pt_xyz)
+    assert sa.stats["init_frame"] == sc.stats["init_frame"]
+    assert sa.stats["init_reanchors"] == sc.stats["init_reanchors"]
+    assert [f.frame_idx for f in sa.trajectory] == [f.frame_idx for f in sc.trajectory]
+    for s in (sa, sc):
+        idxs, est = s.positions()
+        ate, _ = ate_rmse(est, scene.ground_truth()[idxs, :3, 3], align_scale=mode == "mono")
+        assert s.stats["track_failures"] == 0 and ate < (0.02 if mode == "rgbd" else 0.1)
+    if mode == "rgbd":
+        assert sa.stats == sc.stats and sa.stats["ba_runs"] >= 2
+        for fa, fc in zip(sa.trajectory, sc.trajectory):
+            assert fa.is_keyframe == fc.is_keyframe
+            np.testing.assert_allclose(-fa.R_cw.T @ fa.t_cw, -fc.R_cw.T @ fc.t_cw, atol=BA_T_ATOL)
 
 
 @pytest.mark.parametrize("C,N,K,case", [

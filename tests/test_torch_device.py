@@ -31,6 +31,8 @@ def _small_problem_args():
 ENTRY_POINTS = {
     "Slam": lambda: Slam(SlamConfig(use_depth=True)),
     "run_sequence": lambda: run_sequence(SyntheticRGBDScene(2, 48, 64), SlamConfig(use_depth=True)),
+    "run_sequence_pipelined": lambda: run_sequence(SyntheticRGBDScene(2, 48, 64),
+                                                   SlamConfig(use_depth=True), pipelined=True),
     "make_problem": lambda: ba.make_problem(**_small_problem_args()),
     "to_ba_problem": lambda: SlamMap(MapConfig()).to_ba_problem(ICL_INTR),
     "build_loop_map": lambda: synthetic.build_loop_map(16, 64, 4),

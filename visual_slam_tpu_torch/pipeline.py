@@ -28,10 +28,20 @@ same keyframe as there), not a latency workaround. The JAX package's
 result-fetch machinery (packed blobs, background fetch pool) is not
 ported: on CUDA the work queues asynchronously, and an apply reads its
 tensors with `.cpu()`. The batched loop over several sequences is
-`multi.run_batched`; the pipelined loop (`run_pipelined`) is not ported.
+`multi.run_batched`.
+
+`run_pipelined` (≙ visual_slam_tpu/pipeline.py:2403-2745) keeps up to
+`pipeline_depth` tracked frames, and a 40-deep queue of init attempts, in
+flight: tracking and init are split into dispatch and consume, results
+reach the host as one pinned copy per chunk of 4 frames, and each decision
+of the driver follows a count, never a clock or an event's readiness, so
+card runs repeat bit for bit. `run_sequence(pipelined=True)` selects it.
 """
 from __future__ import annotations
 
+import bisect
+import time
+from collections import deque
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -267,10 +277,49 @@ def _host(x: torch.Tensor) -> np.ndarray:
     return x.cpu().numpy()
 
 
+def _track_row(step: TrackStep) -> torch.Tensor:
+    """A tracking step's (R (9), t (3), n_inliers) as one (13,) tensor."""
+    return torch.cat([step.R.reshape(9), step.t, step.n_inliers.to(step.R.dtype)[None]])
+
+
+def _split_track_row(row: np.ndarray):
+    """(R (3,3), t (3,), n_inliers) of a host track row."""
+    return row[:9].reshape(3, 3).copy(), row[9:12].copy(), int(row[12])
+
+
 def _pose_row(step: TrackStep):
     """(R (3,3), t (3,), n_inliers) of a tracking step, in one device read."""
-    row = _host(torch.cat([step.R.reshape(9), step.t, step.n_inliers.to(step.R.dtype)[None]]))
-    return row[:9].reshape(3, 3), row[9:12].copy(), int(row[12])
+    return _split_track_row(_host(_track_row(step)))
+
+
+def _init_row(step: InitStep) -> torch.Tensor:
+    """An init attempt's gate scalars (n_matches, frac, parallax, used_H)."""
+    return torch.stack([step.n_matches.to(step.frac.dtype), step.frac, step.parallax,
+                        step.used_H.to(step.frac.dtype)])
+
+
+class HostRows:
+    """Rows of several steps, stacked into one tensor and moved to the host
+    in one transfer: on CUDA a non-blocking copy into pinned memory and an
+    event recorded behind it, which `result` waits on; on the CPU a plain
+    copy. Nothing asks whether the copy has landed: a caller decides when to
+    read by its own counts, and the read waits if it must."""
+
+    def __init__(self, rows: list[torch.Tensor]):
+        x = torch.stack(rows)
+        self.event = None
+        if x.is_cuda:
+            self.host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            self.host.copy_(x, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = x.clone()
+
+    def result(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
 
 
 _STATS = (
@@ -280,7 +329,7 @@ _STATS = (
     "kf_veto_cached", "init_reverify_rejects", "init_rollbacks", "init_reanchors",
     "ransac_frames", "loop_candidates", "loop_verify_fail", "loop_verify_best",
     "loop_rejected_covis", "loop_rejected_unsatisfied", "loop_rejected_warp", "loop_closures",
-    "ba_discarded_loop",
+    "ba_discarded_loop", "init_side_chain_frames", "init_orphan_frames",
 )
 
 
@@ -301,6 +350,12 @@ class Slam:
         self.trajectory: list[FrameResult] = []
         self._init_feats = None  # monocular init anchor
         self._init_frame_idx = None
+        # Asynchronous init confirmation (run_pipelined): a candidate pair's
+        # re-estimate is dispatched and read at a fixed tick age
+        # (_check_init_verify), one at a time. The serial loop confirms at
+        # once.
+        self._async_init_verify = False
+        self._pending_init_verify = None
         self._snapshot = None
         self._last_kf_id = None
         self._last_kf_feats = None  # device features of the last keyframe
@@ -309,6 +364,11 @@ class Slam:
         self._prev_t = None
         self._pose_dev = None  # the last tracking step's pose: seeds the next PnP
         self._frames_since_kf = 0
+        # Bumped when a keyframe or an accepted closure replaces the tracking
+        # snapshot: a frame dispatched before it is a stale keyframe
+        # candidate. A BA apply does not bump it (its rebuilt snapshot keeps
+        # the landmark ids the handles' snapshots refer to).
+        self._snap_epoch = 0
         # Confirmation-veto cache: a keyframe candidate tracked while a mine
         # was pending is re-tracked against the current map; after a veto,
         # candidates within `_veto_cache_frames` frames skip the re-track
@@ -367,22 +427,11 @@ class Slam:
             self._init_attempt(frame_idx, feats)
 
     def _init_attempt(self, frame_idx, feats):
-        """Monocular init: pair the anchor frame with this one. The first
-        frame becomes the anchor; once a frame is `reanchor_after` frames
-        past it, the anchor slides to that frame (a pathological anchor
-        would otherwise starve init forever)."""
-        if self._init_feats is not None and (
-            frame_idx - self._init_frame_idx <= self.cfg.twoview.reanchor_after
-        ):
-            self._try_pair(frame_idx, feats)
-            return
-        if self._init_feats is not None:
-            self.stats["init_reanchors"] += 1
-            if self.trajectory and self.trajectory[-1].n_tracked == 0:
-                self.trajectory.pop()
-        self._init_feats, self._init_frame_idx = feats, frame_idx
-        self.trajectory.append(FrameResult(
-            frame_idx, np.eye(3, dtype=np.float32), np.zeros(3, np.float32), 0, True))
+        """Monocular init, serially: dispatch an attempt against the anchor
+        and consume it at once."""
+        h = self._dispatch_init(frame_idx, feats)
+        if h is not None:
+            self._consume_init(h)
 
     def _init_step(self, f0, f1) -> InitStep:
         cfg = self.cfg
@@ -396,14 +445,46 @@ class Slam:
             generator=self.generator,
         )
 
-    def _try_pair(self, frame_idx, feats, reverified: bool = False) -> bool:
-        """Gate one init attempt against the anchor and, on acceptance, build
-        the initial map. Returns True when the system becomes initialised."""
+    def _dispatch_init(self, frame_idx, feats, anchor=None) -> dict | None:
+        """Dispatch one two-view init attempt against the anchor and return
+        its handle, or None when this frame becomes the anchor. The first
+        frame is the anchor; once a frame is `reanchor_after` frames past
+        it, and no confirmation is pending, the anchor slides to that frame
+        (a pathological anchor would otherwise starve init forever). The
+        handle binds the anchor it was computed against, so an attempt stays
+        valid through a re-anchor. `anchor` = (features, frame) re-estimates
+        a given pair, with no anchor bookkeeping."""
+        if anchor is None:
+            if self._init_feats is None:
+                self._set_anchor(frame_idx, feats)
+                return None
+            if (frame_idx - self._init_frame_idx > self.cfg.twoview.reanchor_after
+                    and self._pending_init_verify is None):
+                self.stats["init_reanchors"] += 1
+                if self.trajectory and self.trajectory[-1].n_tracked == 0:
+                    self.trajectory.pop()
+                self._set_anchor(frame_idx, feats)
+                return None
+            anchor = (self._init_feats, self._init_frame_idx)
+        f0, anchor_idx = anchor
+        return dict(frame_idx=frame_idx, feats=feats, step=self._init_step(f0, feats),
+                    anchor_feats=f0, anchor_idx=anchor_idx)
+
+    def _set_anchor(self, frame_idx, feats):
+        self._init_feats, self._init_frame_idx = feats, frame_idx
+        self.trajectory.append(FrameResult(
+            frame_idx, np.eye(3, dtype=np.float32), np.zeros(3, np.float32), 0, True))
+
+    def _consume_init(self, h, row: np.ndarray | None = None) -> bool:
+        """Gate a dispatched init attempt and, on acceptance, build the
+        initial map from the handle's anchor. `row`: the attempt's gate
+        scalars when already on the host (run_pipelined reads a chunk of
+        attempts in one copy). Returns True when the system becomes
+        initialised."""
         cfg = self.cfg
-        f0, anchor_idx = self._init_feats, self._init_frame_idx
-        step = self._init_step(f0, feats)
-        scal = _host(torch.stack([step.n_matches.to(step.frac.dtype), step.frac, step.parallax,
-                                  step.used_H.to(step.frac.dtype)]))
+        frame_idx, feats, step = h["frame_idx"], h["feats"], h["step"]
+        f0, anchor_idx = h["anchor_feats"], h["anchor_idx"]
+        scal = row if row is not None else _host(_init_row(step))
         n_matches = int(scal[0])
         if n_matches < cfg.twoview.min_matches:  # ≙ main.py:97-98
             return False
@@ -411,11 +492,22 @@ class Slam:
             return False
         if scal[2] < cfg.twoview.min_init_parallax_deg:
             return False
-        if not reverified:
+        if not h.get("reverified"):
             # validFraction is a high-variance estimator (the RANSAC inlier
             # set jitters across draws): one independent re-estimate with a
             # fresh draw must agree before the pair may build the map.
-            if self._try_pair(frame_idx, feats, reverified=True):
+            h2 = None
+            if not self._async_init_verify or self._pending_init_verify is None:
+                h2 = self._dispatch_init(frame_idx, feats, anchor=(f0, anchor_idx))
+                h2["reverified"] = True
+            if self._async_init_verify:
+                # Read at a fixed tick age (_check_init_verify); one
+                # confirmation in flight at a time, later candidates wait.
+                if h2 is not None:
+                    h2.update(depth=h.get("depth"), age=0, rows=HostRows([_init_row(h2["step"])]))
+                    self._pending_init_verify = h2
+                return False
+            if self._consume_init(h2):
                 return True
             self.stats["init_reverify_rejects"] += 1
             return False
@@ -442,6 +534,16 @@ class Slam:
             self.map = SlamMap(cfg.map)
             self.stats["init_rollbacks"] += 1
             return False
+        # The provisional identity-pose entry must be the accepted anchor's.
+        # A re-anchor after this attempt's dispatch replaced it with a newer
+        # anchor's (the orphan), which got no attempt of its own: it is
+        # tracked against the new map below.
+        orphan = None
+        last = self.trajectory[-1] if self.trajectory else None
+        if last is not None and last.n_tracked == 0 and last.frame_idx != anchor_idx:
+            orphan = (last.frame_idx, self._init_feats)
+            self.trajectory[-1] = FrameResult(
+                anchor_idx, np.eye(3, dtype=np.float32), np.zeros(3, np.float32), 0, True)
         self._loop_db.add(kf0, _host(f0.desc), _host(f0.valid))
         self._loop_db.add(kf1, _host(feats.desc), _host(feats.valid))
         self._finish_keyframe(kf1, feats, mapped, frame_idx)
@@ -450,7 +552,45 @@ class Slam:
         self.stats["init_model"] = "homography" if scal[3] else "essential"
         self.trajectory.append(FrameResult(
             frame_idx, self.map.kf_R[kf1], self.map.kf_t[kf1], n_matches, True))
+        if orphan is not None and orphan[0] > frame_idx:
+            self.stats["init_orphan_frames"] += 1
+            self._backfill_orphan(*orphan, kf1)
         return True
+
+    def _backfill_orphan(self, frame_idx, feats, kf_id):
+        """A pose for the superseded newer anchor: one tracking step against
+        the new map from the accepted keyframe's pose, recorded in frame
+        order (the JAX package appends it after the accepted frame)."""
+        step = self._track_step(feats, self._snapshot, *self._dev_pose(self._prev_R, self._prev_t))
+        R_np, t_np, n = _pose_row(step)
+        if n < self.cfg.tracking.min_tracked_points:
+            R_np, t_np = self._prev_R.copy(), self._prev_t.copy()
+        self._record(FrameResult(frame_idx, R_np, t_np, n, False, ref_kf=kf_id))
+
+    def _check_init_verify(self, force: bool = False) -> bool:
+        """Read the pending init confirmation at tick age 4 (or now, when
+        forced): a fixed age, so the accepted pair never depends on when
+        the copy lands. Returns True when it agreed and the system
+        initialised."""
+        h2 = self._pending_init_verify
+        if h2 is None:
+            return False
+        if not force and h2["age"] < 4:
+            h2["age"] += 1
+            return False
+        self._pending_init_verify = None
+        if self._consume_init(h2, h2["rows"].result()[0]):
+            return True
+        self.stats["init_reverify_rejects"] += 1
+        return False
+
+    def _record(self, fr: FrameResult) -> None:
+        """Add a trajectory entry in frame order: a backfilled frame can be
+        older than the entries already recorded."""
+        if self.trajectory and fr.frame_idx < self.trajectory[-1].frame_idx:
+            bisect.insort(self.trajectory, fr, key=lambda f: f.frame_idx)
+        else:
+            self.trajectory.append(fr)
 
     def _initialize_rgbd(self, frame_idx, feats, depth):
         """RGB-D initialisation: backproject the features through the metric
@@ -488,59 +628,103 @@ class Slam:
         # The pending mine and BA tick once per tracked frame.
         self._apply_pending_ba()
         with self.timers.time("track"):
-            cfg = self.cfg
-            snap = self._snapshot
-            mine_pending = self._pending_mine is not None
-            prior = self._pose_dev or self._dev_pose(self._prev_R, self._prev_t)
-            step = self._track_step(feats, snap, *prior)
-            self._pose_dev = (step.R, step.t)
-            self.stats["ransac_frames"] += int(step.used_ransac)
-            R_np, t_np, n_tracked = _pose_row(step)
-            relocalized = False
+            self._consume_track(self._dispatch_track(frame_idx, feats, depth))
+
+    def _dispatch_track(self, frame_idx, feats, depth) -> dict:
+        """Dispatch one tracking step and return its handle. PnP is seeded
+        from the previous dispatch's pose on the device, so a frame never
+        waits for the one before it to reach the host; the chain reseeds
+        from the host pose after a retry, a failure or a closure. The
+        handle binds the snapshot the step's match indices refer to (a
+        keyframe may replace self._snapshot before the consume), its epoch,
+        and whether a mine was pending."""
+        snap = self._snapshot
+        mine_pending = self._pending_mine is not None
+        prior = self._pose_dev or self._dev_pose(self._prev_R, self._prev_t)
+        step = self._track_step(feats, snap, *prior)
+        self._pose_dev = (step.R, step.t)
+        self.stats["ransac_frames"] += int(step.used_ransac)
+        return dict(frame_idx=frame_idx, feats=feats, depth=depth, snap=snap,
+                    snap_epoch=self._snap_epoch, mine_pending=mine_pending, step=step)
+
+    def _dispatch_backfill(self, handles: list) -> list:
+        """Tracking steps for frames outside the live stream (init attempts
+        consumed while a confirmation was pending), on a side pose chain:
+        the live chain and the generator are saved and restored around them,
+        so the live stream is the same with and without them. Returns
+        `backfill` handles: their consume records a pose and nothing else."""
+        chain, gen = self._pose_dev, self.generator.get_state()
+        out = []
+        for h in handles:
+            th = self._dispatch_track(h["frame_idx"], h["feats"], h.get("depth"))
+            th["backfill"] = True
+            out.append(th)
+        self._pose_dev = chain
+        self.generator.set_state(gen)
+        return out
+
+    def _consume_track(self, h: dict, row: np.ndarray | None = None) -> None:
+        """The host's side of a dispatched tracking step: pose bookkeeping,
+        the retry and failure path, the keyframe rule and insertion. `row`:
+        the step's track row when already on the host (run_pipelined reads
+        a chunk of frames in one copy). A `backfill` handle only records a
+        pose: no keyframe candidacy, no cadence tick, no _prev_R update."""
+        cfg = self.cfg
+        frame_idx, feats, depth, snap, step = h["frame_idx"], h["feats"], h["depth"], h["snap"], h["step"]
+        R_np, t_np, n_tracked = _split_track_row(row) if row is not None else _pose_row(step)
+        if h.get("backfill"):
             if n_tracked < cfg.tracking.min_tracked_points:
-                # Retry once against the current map (pending mine forced
-                # in) before declaring a failure.
-                step2, snap2 = self._retrack_candidate(feats, self._prev_R, self._prev_t)
-                R2, t2, n2 = _pose_row(step2)
-                if n2 >= cfg.tracking.min_tracked_points:
-                    self.stats["fail_retried_ok"] += 1
-                    step, snap, R_np, t_np, n_tracked = step2, snap2, R2, t2, n2
-                    self._prev_R, self._prev_t = R_np, t_np
-                    self._pose_dev = None  # reseed the next PnP from the host pose
-                else:
-                    relocalized, R_np, t_np, n_tracked = self._handle_track_failure(feats)
-            else:
+                R_np, t_np = self._prev_R.copy(), self._prev_t.copy()
+            self._record(FrameResult(frame_idx, R_np, t_np, n_tracked, False,
+                                     ref_kf=self._last_kf_id if self._last_kf_id is not None else -1))
+            return
+        relocalized = False
+        if n_tracked < cfg.tracking.min_tracked_points:
+            # Retry once against the current map (pending mine forced in)
+            # before declaring a failure: a lagging dispatch-time snapshot
+            # can look like a lost track.
+            step2, snap2 = self._retrack_candidate(feats, self._prev_R, self._prev_t)
+            R2, t2, n2 = _pose_row(step2)
+            if n2 >= cfg.tracking.min_tracked_points:
+                self.stats["fail_retried_ok"] += 1
+                step, snap, R_np, t_np, n_tracked = step2, snap2, R2, t2, n2
                 self._prev_R, self._prev_t = R_np, t_np
-            self._frames_since_kf += 1
-            # A relocalised frame's match indices refer to the global
-            # snapshot: it is never promoted in the same step.
-            is_kf = self._keyframe_rule(n_tracked, snap["n_valid"]) and not relocalized
-            if is_kf and mine_pending:
-                # Tracked against the pre-mine snapshot, whose small n_local
-                # makes the 0.9 rule fire spuriously: re-track against the
-                # current map and re-apply the rule.
-                if (self._last_veto_token == self._state_token
-                        and frame_idx - self._last_veto_frame <= self._veto_cache_frames):
-                    is_kf = False
-                    self.stats["kf_veto_cached"] += 1
+                self._pose_dev = None  # reseed the next PnP from the host pose
+            else:
+                relocalized, R_np, t_np, n_tracked = self._handle_track_failure(feats)
+        else:
+            self._prev_R, self._prev_t = R_np, t_np
+        self._frames_since_kf += 1
+        # A relocalised frame's match indices refer to the global
+        # snapshot: it is never promoted in the same step.
+        is_kf = self._keyframe_rule(n_tracked, snap["n_valid"]) and not relocalized
+        if is_kf and (h["snap_epoch"] != self._snap_epoch or h["mine_pending"]):
+            # Tracked against a snapshot a newer keyframe or closure has
+            # replaced, or against the pre-mine snapshot whose small n_local
+            # makes the 0.9 rule fire spuriously: re-track against the
+            # current map and re-apply the rule.
+            if (self._last_veto_token == self._state_token
+                    and frame_idx - self._last_veto_frame <= self._veto_cache_frames):
+                is_kf = False
+                self.stats["kf_veto_cached"] += 1
+            else:
+                step, snap = self._retrack_candidate(feats, R_np, t_np)
+                R2, t2, n2 = _pose_row(step)
+                if self._keyframe_rule(n2, snap["n_valid"]):
+                    R_np, t_np, n_tracked = R2, t2, n2
+                    self._prev_R, self._prev_t = R_np, t_np
+                    self.stats["kf_retracked"] += 1
                 else:
-                    step, snap = self._retrack_candidate(feats, R_np, t_np)
-                    R2, t2, n2 = _pose_row(step)
-                    if self._keyframe_rule(n2, snap["n_valid"]):
-                        R_np, t_np, n_tracked = R2, t2, n2
-                        self._prev_R, self._prev_t = R_np, t_np
-                        self.stats["kf_retracked"] += 1
-                    else:
-                        is_kf = False
-                        self._last_veto_token = self._state_token
-                        self._last_veto_frame = frame_idx
-                        self.stats["kf_vetoed_stale"] += 1
-            if is_kf:
-                self._insert_keyframe(frame_idx, feats, R_np, t_np, step, depth, snap)
-            self.trajectory.append(FrameResult(
-                frame_idx, R_np, t_np, n_tracked, is_kf,
-                ref_kf=self._last_kf_id if self._last_kf_id is not None else -1,
-            ))
+                    is_kf = False
+                    self._last_veto_token = self._state_token
+                    self._last_veto_frame = frame_idx
+                    self.stats["kf_vetoed_stale"] += 1
+        if is_kf:
+            self._insert_keyframe(frame_idx, feats, R_np, t_np, step, depth, snap)
+        self._record(FrameResult(
+            frame_idx, R_np, t_np, n_tracked, is_kf,
+            ref_kf=self._last_kf_id if self._last_kf_id is not None else -1,
+        ))
 
     def _keyframe_rule(self, n_tracked: int, n_local: int) -> bool:
         """Keyframe decision ≙ main.py:221, evaluated on the host. The
@@ -819,6 +1003,7 @@ class Slam:
         self._last_kf_id = kf_id
         self._last_kf_feats = feats
         self._last_kf_mapped = mapped
+        self._snap_epoch += 1
         self._state_token += 1
         self._snapshot = self.map.local_snapshot(kf_id, self.device)
         self._prev_R = self.map.kf_R[kf_id].copy()
@@ -1009,8 +1194,11 @@ class Slam:
         self._rewrite_keyframe_trajectory(old_R=saved[0], old_t=saved[1])
         # Reset tracking around the corrected map, on the latest keyframe:
         # the verification can land after a newer keyframe was inserted.
+        # Frames in flight were tracked in the uncorrected world: the epoch
+        # bump makes them re-track before they may become keyframes.
         anchor = self._last_kf_id if self._last_kf_id is not None else kf_id
         self._snapshot = m.local_snapshot(anchor, self.device)
+        self._snap_epoch += 1
         self._state_token += 1
         self._prev_R = m.kf_R[anchor].copy()
         self._prev_t = m.kf_t[anchor].copy()
@@ -1182,18 +1370,227 @@ class Slam:
         return idxs, -np.einsum("nji,nj->ni", R, t)
 
 
+def run_pipelined(slam: Slam, frame_iter, pipeline_depth: int = 8, h2d_block: int = 4,
+                  prof: dict | None = None, on_frame=None) -> Slam:
+    """Drive a Slam over (frame_idx, image or Features, depth) tuples with
+    up to `pipeline_depth` tracked frames in flight (≙ the JAX package's
+    run_pipelined, visual_slam_tpu/pipeline.py:2403-2745).
+
+    Tracking steps are dispatched as frames arrive and consumed in chunks of
+    4, one pinned host copy a chunk (HostRows), once `pipeline_depth // 4`
+    newer chunks are in flight; keyframe decisions therefore lag, and a
+    stale candidate re-tracks against the current map (_consume_track).
+    Monocular init attempts queue 40 deep and are read in chunks of 4, the
+    oldest prepared chunk once two wait; a candidate's confirmation is read
+    4 ticks after its dispatch. Every one of these is a count: no decision
+    asks whether a copy has landed, so runs repeat bit for bit. Host images
+    move to the card `h2d_block` at a time, one stacked copy a block.
+    `prof`: a dict that gathers wall seconds per phase (the JAX package's
+    keys). `on_frame(slam, i)` is called after each frame; the map it sees
+    lags the stream by the frames in flight.
+    """
+    cfg = slam.cfg
+    consume_chunk = 4  # the JAX package's: 8 broke full-sequence geometry
+    chunk_depth = max(1, pipeline_depth // consume_chunk)
+    init_cap = max(pipeline_depth, 40)
+    init_pending: deque = deque()  # dispatched init attempts
+    init_prepared: list = []  # (HostRows, handles): at most two chunks of attempts
+    cur: list = []  # dispatched tracking handles awaiting their chunk
+    chunks: deque = deque()  # (HostRows, handles)
+    # Attempts consumed while a confirmation was pending: on acceptance the
+    # newer of them get poses on a side chain (drain_init_to_tracking).
+    verify_buffer: list = []
+
+    def tick(key, t0):
+        if prof is not None:
+            prof[key] = prof.get(key, 0.0) + (time.perf_counter() - t0)
+
+    def close_chunk():
+        chunks.append((HostRows([_track_row(h["step"]) for h in cur]), cur.copy()))
+        cur.clear()
+
+    def push_track(h):
+        cur.append(h)
+        if len(cur) == consume_chunk:
+            close_chunk()
+
+    def track_attempt(h):
+        """An init attempt's frame, tracked once the map exists."""
+        slam._apply_pending_ba()
+        push_track(slam._dispatch_track(h["frame_idx"], h["feats"], h.get("depth")))
+
+    def drain_tracking(target_chunks):
+        while len(chunks) > target_chunks:
+            rows, handles = chunks.popleft()
+            for h, row in zip(handles, rows.result()):
+                slam._consume_track(h, row)
+
+    def consume_init_buffered(h, row=None):
+        was_pending = slam._pending_init_verify is not None
+        ok = slam._consume_init(h, row)
+        if not ok and was_pending:
+            h["was_verify_buffered"] = True
+            verify_buffer.append(h)
+            if len(verify_buffer) > 64:  # older frames predate any acceptable pair
+                verify_buffer.pop(0)
+        return ok
+
+    def drain_init_to_tracking():
+        """On acceptance, the attempts in flight (frames newer than the
+        accepted pair) become tracking frames: the verify-buffer frames,
+        the oldest, get poses on a side chain and stay out of the live
+        stream (Slam._dispatch_backfill); the rest are dispatched as
+        tracking, and the backlog consumed down to the tracking depth."""
+        leftover = list(verify_buffer)
+        verify_buffer.clear()
+        for _, head in init_prepared:
+            leftover.extend(head)
+        init_prepared.clear()
+        leftover.extend(init_pending)
+        init_pending.clear()
+        newer = [h for h in leftover if h["frame_idx"] > slam.stats["init_frame"]]
+        backfill = slam._dispatch_backfill([h for h in newer if h.get("was_verify_buffered")])
+        slam.stats["init_side_chain_frames"] += len(backfill)
+        for h in newer:
+            if not h.get("was_verify_buffered"):
+                track_attempt(h)
+        if backfill:
+            rows = HostRows([_track_row(th["step"]) for th in backfill]).result()
+            for th, row in zip(backfill, rows):
+                slam._consume_track(th, row)
+        drain_tracking(chunk_depth)
+
+    def dispatch(i, feats, depth):
+        if not slam.initialized:
+            if cfg.use_depth and depth is not None:
+                slam._try_initialize(i, feats, depth)  # RGB-D: at once, no search
+                return
+            t0 = time.perf_counter()
+            if not slam._check_init_verify():
+                dispatch_init(i, feats, depth, t0)
+                return
+            tick("consume_init", t0)
+            drain_init_to_tracking()  # accepted: this frame is tracked below
+        init_pending.clear()
+        t0 = time.perf_counter()
+        slam._apply_pending_ba()
+        tick("apply_ba", t0)
+        t0 = time.perf_counter()
+        push_track(slam._dispatch_track(i, feats, depth))
+        tick("dispatch_track", t0)
+        t0 = time.perf_counter()
+        drain_tracking(chunk_depth)
+        tick("consume_track", t0)
+
+    def consume_head(rows, head, force_verify=False):
+        for h, row in zip(head, rows):
+            if slam.initialized:
+                track_attempt(h)
+            elif consume_init_buffered(h, row) or (force_verify and slam._check_init_verify(force=True)):
+                drain_init_to_tracking()
+
+    def dispatch_init(i, feats, depth, t0):
+        h = slam._dispatch_init(i, feats)
+        if h is not None:
+            h["depth"] = depth
+            init_pending.append(h)
+        tick("dispatch_init", t0)
+        t0 = time.perf_counter()
+        # The JAX package also consumes the oldest prepared chunk when its
+        # fetch reports done, which makes its history depend on timing;
+        # here only the count decides (its branch when the fetch lags).
+        if len(init_prepared) >= 2:
+            t1 = time.perf_counter()
+            rows, head = init_prepared.pop(0)
+            rows = rows.result()
+            tick("init_fetch_wait", t1)
+            t1 = time.perf_counter()
+            consume_head(rows, head)
+            tick("init_consume_host", t1)
+        if len(init_prepared) < 2 and len(init_pending) > init_cap:
+            t1 = time.perf_counter()
+            head = [init_pending.popleft() for _ in range(min(consume_chunk, len(init_pending)))]
+            init_prepared.append((HostRows([_init_row(h2["step"]) for h2 in head]), head))
+            tick("init_stack", t1)
+        tick("consume_init", t0)
+
+    def extract(img):
+        t0 = time.perf_counter()
+        f = frontend.extract(img, cfg.frontend.max_features, cfg.frontend.quality_level,
+                             cfg.frontend.nms_radius)
+        tick("extract", t0)
+        return f
+
+    block: list = []  # host images awaiting one stacked copy
+
+    def flush_block():
+        if not block:
+            return
+        t0 = time.perf_counter()
+        stack = torch.from_numpy(np.stack([img for _, img, _ in block]))
+        if slam.device.type == "cuda":
+            stack = stack.pin_memory().to(slam.device, non_blocking=True)
+        tick("h2d", t0)
+        for k, (i, _, depth) in enumerate(block):
+            dispatch(i, extract(stack[k]), depth)
+        block.clear()
+
+    slam._async_init_verify = True
+    slam.timers.sync = False
+    try:
+        for i, img, depth in frame_iter:
+            if isinstance(img, frontend.Features):
+                flush_block()
+                dispatch(i, img, depth)
+            elif isinstance(img, np.ndarray):
+                block.append((i, img, depth))
+                if len(block) >= max(h2d_block, 1):
+                    flush_block()
+            else:  # a tensor
+                flush_block()
+                dispatch(i, extract(img.to(slam.device)), depth)
+            if on_frame is not None:
+                on_frame(slam, i)
+        flush_block()
+        while init_prepared:
+            rows, head = init_prepared.pop(0)
+            consume_head(rows.result(), head, force_verify=True)
+        while init_pending and not slam.initialized:
+            if consume_init_buffered(init_pending.popleft()) or slam._check_init_verify(force=True):
+                drain_init_to_tracking()
+        if not slam.initialized and slam._check_init_verify(force=True):
+            drain_init_to_tracking()
+        if cur:
+            close_chunk()
+        drain_tracking(0)
+        # The last keyframe's mine and BA: nothing after the stream forces them.
+        slam._apply_pending_mine(force=True, dispatch_ba=True)
+        slam._apply_pending_ba(force=True)
+    finally:
+        slam._async_init_verify = False
+        slam._pending_init_verify = None
+        slam.timers.sync = True
+    return slam
+
+
 def run_sequence(dataset, config: SlamConfig | None = None, start: int = 0,
                  stop: int | None = None, device="cuda", verbose: bool = False,
-                 on_frame=None) -> Slam:
-    """Run SLAM serially over a dataset (any object with the reader's
+                 on_frame=None, pipelined: bool = False, pipeline_depth: int = 8,
+                 prof: dict | None = None) -> Slam:
+    """Run SLAM over a dataset (any object with the reader's
     `frames(start, stop)` -> (idx, gray, depth) interface); returns the Slam.
-    Without a config, the capacities are sized to the frame range
-    (size_config_for; the range's end is `len(dataset)` when `stop` is
-    None). `on_frame(slam, i)` is called after each frame (utils.viz.LiveView
-    is one); `verbose` prints a progress line every 25th frame."""
+    Serially, or with `pipelined` through run_pipelined at `pipeline_depth`
+    (`prof` gathers its wall seconds per phase). Without a config, the
+    capacities are sized to the frame range (size_config_for; the range's
+    end is `len(dataset)` when `stop` is None). `on_frame(slam, i)` is
+    called after each frame (utils.viz.LiveView is one); `verbose` prints a
+    progress line every 25th frame of the serial loop."""
     if config is None:
         config = size_config_for((stop if stop is not None else len(dataset)) - start)
     slam = Slam(config, device=device)
+    if pipelined:
+        return run_pipelined(slam, dataset.frames(start, stop), pipeline_depth, prof=prof,
+                             on_frame=on_frame)
     for i, gray, depth in dataset.frames(start, stop):
         slam.process(i, gray, depth)
         if on_frame is not None:

@@ -1,9 +1,11 @@
 """Stage timers (port of StageTimers in visual_slam_tpu/utils/profiling.py).
 
-Each timed stage ends with a device synchronise when the device is a GPU,
-so a stage's time includes its kernels and not only their enqueue. That is
-one extra sync per stage; the tracking stage syncs on its own anyway
-(ops/pnp.solve_pnp_tracked reads its branch decision on the host).
+Each timed stage ends with a device synchronise when the device is a GPU
+and `sync` is on, so a stage's time includes its kernels and not only their
+enqueue. That is one extra sync per stage; the tracking stage syncs on its
+own anyway (ops/pnp.solve_pnp_tracked reads its branch decision on the
+host). The pipelined driver turns `sync` off for its run: there a stage's
+time is the host's.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ class StageTimers:
     def __init__(self, device: torch.device):
         self.device = torch.device(device)
         self.ms = defaultdict(list)
+        self.sync = True
 
     @contextlib.contextmanager
     def time(self, name: str):
@@ -28,7 +31,7 @@ class StageTimers:
         try:
             yield
         finally:
-            if self.device.type == "cuda":
+            if self.sync and self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self.ms[name].append(1e3 * (time.perf_counter() - t0))
 
