@@ -113,6 +113,15 @@ Phases, each raising on failure:
                monocular; frames/s, host syncs per tracked frame and per
                init attempt, device busy share over a profiled window, and
                launches, beside the serial run's
+ 25. entry     the entry module (entry.py): entry()'s tracking step on the
+               card against the CPU with the same minimal sets, on its own
+               snapshot (RANSAC's DLT decides the pose) and on one of the
+               frame's own features (the GN branch, R and t 1e-4), n_in
+               equal, B1 and B3 once a step, median ms over 20 steps each;
+               the stage table of one tracked frame (roofline.stage_table
+               on queued-event times, 640x480, K=1024, M=2048);
+               dryrun_multichip(1) on an NCCL world of one rank against
+               the same call on the CPU, its seconds
 
 Prints the kernels' JSON line, then, as the last line,
 {"ok": true, "device": {...}}. Exits non-zero with no result line when
@@ -1634,6 +1643,204 @@ def pipelined_phase(dev, smi, rgbd, mono, revisit) -> dict:
     return out
 
 
+# Phase 25: the entry module (visual_slam_tpu_torch/entry.py). The step's
+# card run against its CPU run, the same minimal sets injected, n_in equal:
+# on a snapshot of the frame's own features (the GN branch) R, t 1e-4
+# (tests/test_torch_entry.py's step bar); on entry()'s own, which matches
+# nothing, within twice entry.dlt_null_vector_bound (R; t that times |t|),
+# how far float32 eigensolvers may part on the one DLT. The dry run's five
+# solves on the card against the same call on the CPU at that file's bars:
+# the chain pose graph t 1e-4, R 1e-5; Sim3 R, t, log-scales 1e-4; the
+# front-end's uv and valid equal, score rtol 1e-5, >= 99.5% of descriptor
+# bits. Its bundle adjustments are degenerate (four cameras within 2 cm of
+# the origin: no baseline, the scale free), so each is held bit for bit to
+# the unsharded solve on its device, to the CPU within ENTRY_SPREAD_FACTOR x
+# the CPU solve's own spread: the farthest it moves when its translations
+# are scaled by 1 + k PERTURB, k = +-1 .. +-DRY_PERTURB_STEPS (the cost of
+# the large-map solve, ~81, moves by up to 15 over those eight on the CPU,
+# by 2 over k = +-1 alone); and to a cost below its start.
+ENTRY_STEPS, ENTRY_POSE_ATOL = 20, 1e-4
+DRY_PERTURB_STEPS = 4
+DRY_CHAIN_T_ATOL, DRY_CHAIN_R_ATOL, DRY_SIM3_ATOL = 1e-4, 1e-5, 1e-4
+ENTRY_SPREAD_FACTOR = 2.0
+ROOF_K, ROOF_M = 1024, 2048  # one tracked frame of the SLAM loop (SlamConfig defaults)
+
+
+def roofline_stages(dev, gray_np) -> dict:
+    """Each stage of one tracked frame at 640x480, K=1024, M=2048 as a
+    callable on card tensors: the tracking path's own functions in order,
+    each on the outputs of the one before; PnP's prior-seeded branch
+    (pnp.refine_from_prior: no host read) on a 2048-point snapshot seen from
+    a pose 3 cm and ~1 deg off the prior."""
+    from visual_slam_tpu_torch.models import frontend
+    from visual_slam_tpu_torch.ops import descriptor_mxu, lie, match, pnp, projection
+    from visual_slam_tpu_torch.ops.kernels import detect_kernel, patch_kernel
+
+    rng = np.random.default_rng(25)
+    gray = torch.from_numpy(gray_np).to(dev)
+    peaks, blurred = detect_kernel.corner_peaks_and_blur(gray)
+    uv, _, valid = frontend._topk_select(peaks, ROOF_K)
+    flat = patch_kernel.extract_patches(blurred, uv).reshape(ROOF_K, -1)
+    theta = descriptor_mxu.orientation_from_patches(flat)
+    desc = descriptor_mxu._sample_and_pack(flat, theta)
+    snap_desc = torch.from_numpy(rng.integers(0, 2**32, (ROOF_M, 8), dtype=np.uint32).view(np.int32)).to(dev)
+    snap_valid = torch.ones(ROOF_M, dtype=torch.bool, device=dev)
+    X = torch.from_numpy(np.stack([rng.uniform(-2, 2, ROOF_M), rng.uniform(-1.5, 1.5, ROOF_M),
+                                   rng.uniform(2, 8, ROOF_M)], -1).astype(np.float32)).to(dev)
+    intr = torch.tensor([481.2, 480.0, 319.5, 239.5], device=dev)
+    R = lie.so3_exp(torch.tensor([0.01, -0.02, 0.005], device=dev))
+    t = torch.tensor([0.03, -0.01, 0.02], device=dev)
+    obs = projection.project(R, t, X, intr)[0] + torch.from_numpy(
+        rng.normal(scale=0.5, size=(ROOF_M, 2)).astype(np.float32)).to(dev)
+    eye, zero = torch.eye(3, device=dev), torch.zeros(3, device=dev)
+    return {
+        "detect_blur": lambda: detect_kernel.corner_peaks_and_blur(gray),
+        "topk": lambda: frontend._topk_select(peaks, ROOF_K),
+        "patches": lambda: patch_kernel.extract_patches(blurred, uv),
+        "orientation": lambda: descriptor_mxu.orientation_from_patches(flat),
+        "descriptor": lambda: descriptor_mxu._sample_and_pack(flat, theta),
+        "match": lambda: match.match_ratio_test(snap_desc, desc, snap_valid, valid),
+        "pnp": lambda: pnp.refine_from_prior(X, obs, intr, snap_valid, eye, zero, refine_iters=10),
+    }
+
+
+def dry_solve(kind, device, scale=1.0) -> dict:
+    """The dry run's solve `kind` ("ba", "large") unsharded on `device`, its
+    translations scaled by `scale`: R, t, X and cost as NumPy."""
+    from visual_slam_tpu_torch import entry
+    from visual_slam_tpu_torch.models import ba, ba_large
+
+    p, _ = ba.make_problem(**entry.dryrun_problems(1)["ba"], device=device)
+    fn = ba.optimize if kind == "ba" else ba_large.optimize
+    out, cost = fn(p._replace(t=p.t * scale), n_iters=entry.DRY_ITERS, cg_iters=entry.DRY_CG)
+    return {k: v.cpu().numpy() for k, v in dict(R=out.R, t=out.t, X=out.X, cost=cost).items()}
+
+
+def entry_phase(dev, smi, gray_np) -> dict:
+    """Phase 25: entry()'s step on the card against the CPU, on entry()'s
+    snapshot and on one of the frame's own features, its median ms over
+    ENTRY_STEPS steps of each and its B1/B3 launches; the stage table of one
+    tracked frame; dryrun_multichip(1) on an NCCL world of one rank here
+    against the same call on the CPU (gloo). Returns launches by path."""
+    from visual_slam_tpu_torch import entry
+    from visual_slam_tpu_torch.models import ba, frontend
+    from visual_slam_tpu_torch.ops import match, ransac
+    from visual_slam_tpu_torch.utils import roofline
+
+    t_start = time.perf_counter()
+    step, gargs = entry.entry(dev)
+    _, cargs = entry.entry("cpu")
+    f = frontend.extract(cargs[0], entry.STEP_FEATURES)  # the CPU step's features
+    snap = entry.matched_snapshot(f, cargs[6])
+    cases = {"step": (cargs, gargs),  # entry()'s own arguments
+             "step_matched": ((cargs[0], *snap, *cargs[4:]),
+                              (gargs[0], *(a.to(dev) for a in snap), *gargs[4:]))}
+    paths = {}
+    for name, (ca, ga) in cases.items():
+        # The same minimal sets on both sides, drawn on the CPU over the CPU
+        # step's matches.
+        idx2, _, good = match.match_ratio_test(ca[1], f.desc, ca[3], f.valid)
+        idx = ransac.sample_minimal_sets(torch.Generator().manual_seed(0), entry.STEP_HYPS, 6, good)
+        want = step(*ca, idx=idx)
+        idx_dev = idx.to(dev)
+        step(*ga, idx=idx_dev)  # warm-up
+        torch.cuda.synchronize()
+        zero_kernel_counts()
+        ms = []
+        for _ in range(ENTRY_STEPS):
+            t0 = time.perf_counter()
+            got = step(*ga, idx=idx_dev)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        launches = kernel_counts()
+        paths[f"entry_{name}_{ENTRY_STEPS}"] = launches
+        dR = float((got[0].cpu() - want[0]).abs().max())
+        dt = float((got[1].cpu() - want[1]).abs().max())
+        bar_R = bar_t = ENTRY_POSE_ATOL
+        how = f"the GN branch, bar {ENTRY_POSE_ATOL}"
+        if name == "step":
+            # No match: the pose is the DLT of one minimal set, its float32
+            # null vector conditioned at kappa (entry.dlt_null_vector_bound).
+            intr = ca[6].double()
+            xn = ((f.uv[idx2][idx[0]].double() - intr[2:]) / intr[:2]).numpy()
+            kappa = entry.dlt_null_vector_bound(ca[2][idx[0]].numpy(), xn)
+            bar_R, bar_t = 2 * kappa, 2 * kappa * float(want[1].norm())
+            how = f"RANSAC's DLT, kappa {kappa:.3g}: bars R {bar_R:.3g}, t {bar_t:.3g}"
+        log(f"[entry] {name} ({entry.STEP_FEATURES} features, {int(good.sum())} matches, "
+            f"{how}): median {statistics.median(ms):.3f} ms a step over {ENTRY_STEPS} (min "
+            f"{min(ms):.3f}, max {max(ms):.3f}); card vs CPU R {dR:.3g}, t {dt:.3g}, n_in "
+            f"{int(got[2])} / {int(want[2])}; launches {launches}; {smi}")
+        if dR > bar_R or dt > bar_t or int(got[2]) != int(want[2]):
+            raise AssertionError(f"entry {name}: card vs CPU R {dR}, t {dt}, n_in {int(got[2])} "
+                                 f"vs {int(want[2])}")
+        if launches["detect_blur"] != ENTRY_STEPS or launches["patch"] != ENTRY_STEPS:
+            raise AssertionError(f"entry {name}: {launches} over {ENTRY_STEPS} steps, not B1 "
+                                 f"and B3 once a step")
+
+    # The stage table of one tracked frame, queued CUDA events a stage
+    # (a stage of more launches than the launch queue holds, PnP's two GN
+    # loops, is timed at the host's launch rate; the profiler's sum of its
+    # kernels is printed beside each stage)
+    stages = roofline_stages(dev, gray_np)
+    stage_ms = {name: queued_ms(fn) for name, fn in stages.items()}
+    kernel_ms = {name: device_ms(fn, iters=10) for name, fn in stages.items()}
+    H, W = gray_np.shape
+    table = roofline.stage_table(roofline.stage_costs(H=H, W=W, K=ROOF_K, M=ROOF_M), stage_ms)
+    log(f"[entry] stage table, {W}x{H}, K={ROOF_K}, M={ROOF_M} (queued CUDA events; "
+        f"roofline.stage_costs over the H100's peaks); {smi}")
+    for name, row in table.items():
+        log(f"[entry]   {name:12s} {row['ms']:.4f} ms  {row['gflops']:.4f} GFLOP ({row['dtype']})  "
+            f"{row['mbytes']:.2f} MB  {row.get('achieved_tflops')} TFLOP/s "
+            f"({row.get('pct_compute_peak')}%)  {row.get('achieved_gbps')} GB/s "
+            f"({row.get('pct_hbm_peak')}%)  {row['bound']}; kernels {kernel_ms[name][0]:.4f} ms "
+            f"({kernel_ms[name][1]})")
+    log(f"[entry] stage table JSON {json.dumps(table)}")
+
+    # dryrun_multichip(1): an NCCL world of one rank here, then the CPU
+    torch.cuda.synchronize()
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    card, = entry.dryrun_multichip(1, device=dev)
+    torch.cuda.synchronize()
+    dry_s = time.perf_counter() - t0
+    dry_launches = kernel_counts()
+    cpu, = entry.dryrun_multichip(1, device="cpu")
+    gaps = {}
+    start = float(ba._cost(ba.make_problem(**entry.dryrun_problems(1)["ba"], device="cpu")[0]))
+    for kind in ("ba", "large"):
+        # A world of one rank is the unsharded solve, bit for bit, on both
+        base = {d: dry_solve(kind, d) for d in (dev, "cpu")}
+        moved = [dry_solve(kind, "cpu", 1 + s * k * PERTURB) for k in range(1, DRY_PERTURB_STEPS + 1)
+                 for s in (1, -1)]
+        for k in ("R", "t", "X", "cost"):
+            spread = max(float(np.abs(m[k] - base["cpu"][k]).max()) for m in moved)
+            gaps[f"{kind}_{k}"] = (float(np.abs(card[f"{kind}_{k}"] - cpu[f"{kind}_{k}"]).max()),
+                                   ENTRY_SPREAD_FACTOR * spread)
+            if not (np.array_equal(card[f"{kind}_{k}"], base[dev][k])
+                    and np.array_equal(cpu[f"{kind}_{k}"], base["cpu"][k])):
+                raise AssertionError(f"dry run {kind}: a world of one is not the unsharded solve ({k})")
+        if not float(card[f"{kind}_cost"]) < start:
+            raise AssertionError(f"dry run {kind}: card cost {float(card[f'{kind}_cost'])} from {start}")
+    for k, bar in (("pg_t", DRY_CHAIN_T_ATOL), ("pg_R", DRY_CHAIN_R_ATOL), ("sim3_R", DRY_SIM3_ATOL),
+                   ("sim3_t", DRY_SIM3_ATOL), ("sim3_lam", DRY_SIM3_ATOL)):
+        gaps[k] = (float(np.abs(card[k] - cpu[k]).max()), bar)
+    v = cpu["fe_valid"]
+    bits = (desc_bits(torch.from_numpy(card["fe_desc"][v])) == desc_bits(torch.from_numpy(cpu["fe_desc"][v]))).mean()
+    score = float(np.abs(card["fe_score"][v] / cpu["fe_score"][v] - 1).max())
+    log(f"[entry] dryrun_multichip(1) on an NCCL world of one: {dry_s:.2f} s; launches {dry_launches}; "
+        f"card vs CPU (gap, bar): {({k: (f'{g:.3g}', f'{b:.3g}') for k, (g, b) in gaps.items()})}; "
+        f"front-end uv/valid equal {np.array_equal(card['fe_uv'], cpu['fe_uv']) and np.array_equal(card['fe_valid'], v)}, "
+        f"score rtol {score:.3g}, descriptor bits {bits:.4f}; {smi}")
+    bad = {k: g for k, g in gaps.items() if not g[0] <= g[1]}
+    if bad or not (np.array_equal(card["fe_uv"], cpu["fe_uv"]) and np.array_equal(card["fe_valid"], v)) \
+            or score > PEAK_RTOL or bits < MIN_DESC_BIT_AGREEMENT:
+        raise AssertionError(f"dry run: card vs CPU over the bars {bad}, score {score}, bits {bits}")
+    if min(dry_launches.values()) == 0:
+        raise AssertionError(f"dry run: a kernel never launched ({dry_launches})")
+    log(f"[entry] phase 25 took {time.perf_counter() - t_start:.1f} s")
+    return {**paths, "dryrun_multichip_1": dry_launches}
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -2002,6 +2209,7 @@ def main() -> int:
     revisit_gt = SyntheticRGBDScene(REVISIT_FRAMES, trajectory="revisit").ground_truth()
     pipelined_launches = pipelined_phase(dev, smi, (rendered, scene.ground_truth(), wall, rgbd_stamps),
                                          mono_run, (frames, revisit_gt, revisit_wall, revisit_stamps))
+    entry_launches = entry_phase(dev, smi, rendered[0][1])
     secs = np.diff(lap)
     log(f"[loop] phases 17-21 took {lap[-1] - lap[0]:.1f} s: pose graph {secs[0]:.1f}, scoring "
         f"{secs[1]:.1f}, close loop {secs[2]:.1f}, rendering {REVISIT_FRAMES} frames in {RENDER_THREADS} "
@@ -2010,11 +2218,12 @@ def main() -> int:
     # Each path's launches, its counts set to 0 just before it: phase 6
     # (`launches` below), 15 (twice), 20 (one of its two runs), 21, 22 (its
     # sharded solves; a fleet path sums its ranks' counts), 23 (the
-    # command line's own process, counted there around its run) and 24 (the
-    # pipelined driver, one run of each scene).
+    # command line's own process, counted there around its run), 24 (the
+    # pipelined driver, one run of each scene) and 25 (the entry step's 20
+    # steps on each of its two snapshots, the dry run on a world of one).
     by_path = {"rgbd_60": launches, **mono_launches, "revisit_480": revisit_launches,
                "batched_4x60": batched_launches, **sharded_launches, "cli_rgbd_60": cli_launches,
-               **pipelined_launches}
+               **pipelined_launches, **entry_launches}
 
     kernels = [
         dict(name="detect_blur", route="cuda", source="visual_slam_tpu_torch/csrc/detect_blur.cu",

@@ -638,3 +638,45 @@ def test_nccl_world_of_one_is_the_unsharded_solve(nccl_world_of_one, solver):
     assert counts[0] == counts[1] and counts[0][0] > 0
     for a, b in zip(*outs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["entry", "matched"])
+def test_entry_step_card_matches_cpu(cuda, case):
+    """entry()'s tracking step on the card against the same step on the CPU,
+    the same minimal sets injected (drawn on the CPU over the CPU step's
+    matches): n_in equal, B1 and B3 once a step. "matched" tracks entry()'s
+    frame against a snapshot of its own features (entry.matched_snapshot),
+    where the prior-seeded GN decides the pose: R and t within POSE_ATOL.
+    entry()'s own snapshot matches nothing and leaves the pose to the DLT of
+    one 6-point set, whose float32 null vector two eigensolvers may part on
+    by up to entry.dlt_null_vector_bound each: R within twice that bound, t
+    within twice that times |t|."""
+    from visual_slam_tpu_torch import entry
+    from visual_slam_tpu_torch.ops import match, ransac
+
+    step, gargs = entry.entry()
+    _, cargs = entry.entry("cpu")
+    f = frontend.extract(cargs[0], entry.STEP_FEATURES)
+    if case == "matched":
+        snap = entry.matched_snapshot(f, cargs[6])
+        cargs = (cargs[0], *snap, *cargs[4:])
+        gargs = (gargs[0], *(a.to(cuda) for a in snap), *gargs[4:])
+    idx2, _, good = match.match_ratio_test(cargs[1], f.desc, cargs[3], f.valid)
+    idx = ransac.sample_minimal_sets(torch.Generator().manual_seed(0), entry.STEP_HYPS, 6, good)
+    want = step(*cargs, idx=idx)
+    n0 = (detect_kernel.launches, patch_kernel.launches)
+    got = step(*gargs, idx=idx.to(cuda))
+    torch.cuda.synchronize()
+    assert (detect_kernel.launches, patch_kernel.launches) == (n0[0] + 1, n0[1] + 1)
+    assert int(got[2]) == int(want[2])
+    bar_R = bar_t = POSE_ATOL
+    if case == "entry":
+        assert int(want[2]) == 0
+        intr = cargs[6].double()
+        xn = ((f.uv[idx2][idx[0]].double() - intr[2:]) / intr[:2]).numpy()
+        kappa = entry.dlt_null_vector_bound(cargs[2][idx[0]].numpy(), xn)
+        bar_R, bar_t = 2 * kappa, 2 * kappa * float(want[1].norm())
+    else:
+        assert int(want[2]) > 400
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=0, atol=bar_R)
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=0, atol=bar_t)

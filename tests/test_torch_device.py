@@ -7,7 +7,7 @@ import torch
 
 from torch_parity import ICL_INTR
 
-from visual_slam_tpu_torch import multi
+from visual_slam_tpu_torch import entry, multi
 from visual_slam_tpu_torch.config import MapConfig, SlamConfig
 from visual_slam_tpu_torch.models import ba, frontend
 from visual_slam_tpu_torch.models.map_state import SlamMap
@@ -40,6 +40,9 @@ ENTRY_POINTS = {
     "extract_batch": lambda: frontend.extract_batch(np.zeros((2, 48, 64), np.float32)),
     "run_batched": lambda: multi.run_batched([SyntheticRGBDScene(2, 48, 64)] * 2,
                                              SlamConfig(use_depth=True)),
+    "entry": lambda: entry.entry(),
+    "dryrun_multichip": lambda: entry.dryrun_multichip(1),
+    "dryrun_multihost": lambda: entry.dryrun_multihost(),
 }
 
 

@@ -231,9 +231,10 @@ def _run(args, cwd):
 
 def test_port_imports_no_jax():
     """Every module of the port imports without pulling in jax, the sharded
-    solvers (parallel/*, the rank worker) and the command line's outputs
-    among them; and neither does running the command line's lazily imported
-    writers nor its argument parser."""
+    solvers (parallel/*, the rank worker), the command line's outputs, the
+    entry module and the roofline among them; and neither does running the
+    command line's lazily imported writers, its argument parser, the entry's
+    arrays and its main, nor the roofline's table."""
     code = (
         "import contextlib, importlib, io, pkgutil, sys, tempfile\n"
         "import numpy as np\n"
@@ -242,7 +243,8 @@ def test_port_imports_no_jax():
         "[importlib.import_module(m) for m in mods]\n"
         "assert len(mods) >= 20, mods\n"
         "need = ['parallel.mesh', 'parallel.multihost', 'parallel.sharded_ba', 'parallel.sharded_pg',\n"
-        "        'parallel.worker', 'utils.checkpoint', 'utils.g2o_io', 'utils.viz', 'utils.live_viewer']\n"
+        "        'parallel.worker', 'utils.checkpoint', 'utils.g2o_io', 'utils.viz', 'utils.live_viewer',\n"
+        "        'entry', 'utils.roofline']\n"
         "assert all('visual_slam_tpu_torch.' + m in mods for m in need), mods\n"
         "from visual_slam_tpu_torch import pipeline\n"
         "from visual_slam_tpu_torch.models.map_state import SlamMap\n"
@@ -253,6 +255,12 @@ def test_port_imports_no_jax():
         "g2o_io.save_pose_graph(d + '/g.g2o', np.eye(3)[None], np.zeros((1, 3)), [True])\n"
         "viz.save_ply(d + '/m.ply', np.zeros((2, 3)))\n"
         "viz._overlay_image(np.zeros((4, 4)), None, np.ones((1, 2)))\n"
+        "from visual_slam_tpu_torch import entry\n"
+        "from visual_slam_tpu_torch.utils import roofline\n"
+        "entry.entry_arrays(), entry.dryrun_problems(2), entry.entry('cpu')\n"
+        "roofline.stage_table(roofline.stage_costs(), {'patches': 1.0})\n"
+        "with contextlib.redirect_stderr(io.StringIO()):\n"
+        "    assert entry.main() == (0 if __import__('torch').cuda.is_available() else 1)\n"
         "for main in (pipeline.main, worker.main):\n"
         "    with contextlib.redirect_stdout(io.StringIO()), contextlib.suppress(SystemExit):\n"
         "        main(['--help'])\n"

@@ -1,5 +1,5 @@
 """Feature front-end: detect + orient + describe (port of
-visual_slam_tpu/models/frontend.py:21-106, :116, :171-189, :201-210).
+visual_slam_tpu/models/frontend.py:21-106, :116, :171-210).
 
 The per-frame equivalent of the reference's `Frame.process_frame` ->
 `FeatureExtractor.compute_features` (src/v2/frame.py:85-91, :10-14):
@@ -90,6 +90,12 @@ def extract_batch(imgs, max_features: int = 1024, quality_level: float = 0.01,
     patches = patch_kernel.extract_patches(blurred, uv)
     desc = torch.stack([descriptor_mxu.describe_from_patches(p)[0] for p in patches])
     return Features(uv=uv, desc=desc, score=score, valid=valid)
+
+
+def extract_rgb(rgb_u8: torch.Tensor, max_features: int = 1024) -> Features:
+    """`extract` on a device-resident (H,W,3) uint8 image: the gray
+    conversion runs on the device, so the copy to it is the raw uint8 frame."""
+    return extract(rgb_u8, max_features)
 
 
 def to_gray(rgb: torch.Tensor, batched: bool = False) -> torch.Tensor:

@@ -113,7 +113,7 @@ def sampson_error_sq(E: torch.Tensor, xn1: torch.Tensor, xn2: torch.Tensor) -> t
     return num / (den + 1e-12)
 
 
-def _sampson_residual(R, t, X1, X2):
+def sampson_residual(R, t, X1, X2):
     """Signed Sampson residual of E = [t]x R over homogeneous points (N,3)."""
     E = lie.hat(t) @ R
     Ex1 = X1 @ E.T
@@ -123,7 +123,9 @@ def _sampson_residual(R, t, X1, X2):
     return num / torch.sqrt(den + 1e-12)
 
 
-def _params_to_Rt(p, R_base, t_base, B):
+def params_to_Rt(p, R_base, t_base, B):
+    """The pose at 5-DOF parameters p: so(3) on R_base, and t_base moved in the
+    tangent basis B (3,2) of S2, renormalised."""
     R = lie.so3_exp(p[:3]) @ R_base
     t = t_base + B @ p[3:5]
     return R, t / (torch.linalg.norm(t) + 1e-12)
@@ -154,7 +156,7 @@ def refine_essential_gn(E0: torch.Tensor, xn1: torch.Tensor, xn2: torch.Tensor,
         B = torch.stack([b1, b2], dim=-1)  # (3,2)
 
         def res_fn(p, R=R, t=t, B=B):
-            return _sampson_residual(*_params_to_Rt(p, R, t, B), X1, X2)
+            return sampson_residual(*params_to_Rt(p, R, t, B), X1, X2)
 
         p0 = torch.zeros(5, dtype=t.dtype, device=t.device)
         r = res_fn(p0)
@@ -163,7 +165,7 @@ def refine_essential_gn(E0: torch.Tensor, xn1: torch.Tensor, xn2: torch.Tensor,
         H = wJ.T @ J + eye5
         g = wJ.T @ r
         p = -torch.linalg.solve_ex(H, g)[0]  # no error check: no device sync
-        R, t = _params_to_Rt(p, R, t, B)
+        R, t = params_to_Rt(p, R, t, B)
     return lie.hat(t) @ R
 
 

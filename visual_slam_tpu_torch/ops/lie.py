@@ -1,9 +1,10 @@
-"""SO(3) / SE(3) exponential maps (port of visual_slam_tpu/ops/lie.py:18-51,
-:86-102, :126-134, :171-195).
+"""SO(3) / SE(3) Lie-group operations (port of visual_slam_tpu/ops/lie.py).
 
 The replacement for the reference's `cv2.Rodrigues` usage
-(src/v2/helper_functions.py:269-278). Functions take arbitrary leading
-batch dimensions; se(3) tangents are ordered [omega, v].
+(src/v2/helper_functions.py:269-278) and its `Isometry3d` rigid-transform
+class (src/v2/main.py:32-51). Functions take arbitrary leading batch
+dimensions; se(3) tangents are ordered [omega, v], homogeneous transforms
+are (...,4,4).
 """
 from __future__ import annotations
 
@@ -50,6 +51,29 @@ def so3_exp(w: torch.Tensor) -> torch.Tensor:
     return eye + a * W + b * (W @ W)
 
 
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (...,3,3) -> rotation vector (...,3)
+    (≙ cv2.Rodrigues(R), src/v2/helper_functions.py:276-278)."""
+    cos_t = torch.clamp((R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2] - 1.0) * 0.5, -1.0, 1.0)
+    theta = torch.arccos(cos_t)
+    # Generic branch: theta / (2 sin theta) * vee(R - R^T), a series near 0.
+    sin_t = torch.sin(theta)
+    scale = torch.where(torch.abs(sin_t) > 1e-5, theta / (2.0 * sin_t + _EPS),
+                        0.5 + theta * theta / 12.0)
+    w = vee(R - R.transpose(-1, -2)) * scale[..., None]
+    # Near theta == pi the generic formula degenerates: the axis comes from
+    # the diagonal, R = I + 2 sin^2(t/2) (aa^T - I), its signs from the
+    # off-diagonal terms (the x axis's sign first).
+    near_pi = cos_t < -1.0 + 1e-5
+    diag = torch.stack([R[..., 0, 0], R[..., 1, 1], R[..., 2, 2]], dim=-1)
+    axis = torch.sqrt(torch.clamp((diag + 1.0) * 0.5, 0.0, 1.0) + _EPS)
+    sx = torch.where(R[..., 2, 1] - R[..., 1, 2] >= 0, 1.0, -1.0)
+    sy = torch.where(R[..., 0, 1] + R[..., 1, 0] >= 0, sx, -sx)
+    sz = torch.where(R[..., 0, 2] + R[..., 2, 0] >= 0, sx, -sx)
+    w_pi = axis * torch.stack([sx, sy, sz], dim=-1) * theta[..., None]
+    return torch.where(near_pi[..., None], w_pi, w)
+
+
 def se3_exp(xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """se(3) tangent (...,6) = [omega, v] -> (R (...,3,3), t (...,3))."""
     w, v = xi[..., :3], xi[..., 3:]
@@ -64,6 +88,19 @@ def se3_exp(xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return R, t
 
 
+def se3_log(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """(R, t) -> se(3) tangent (...,6) = [omega, v]."""
+    w = so3_log(R)
+    theta2, small, a, b = _coefficients(w)
+    # V^{-1} = I - W/2 + (1/theta^2)(1 - a/(2b)) W^2
+    coef = torch.where(small, 1.0 / 12.0 + theta2 / 720.0,
+                       (1.0 - a / (2.0 * b + _EPS)) / (theta2 + _EPS))
+    W = hat(w)
+    eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(W.shape)
+    Vinv = eye - 0.5 * W + coef * (W @ W)
+    return torch.cat([w, (Vinv @ t[..., None])[..., 0]], dim=-1)
+
+
 def make_T(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """(R (...,3,3), t (...,3)) -> homogeneous transform (...,4,4)."""
     T = torch.zeros(R.shape[:-2] + (4, 4), dtype=R.dtype, device=R.device)
@@ -71,6 +108,39 @@ def make_T(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     T[..., :3, 3] = t
     T[..., 3, 3] = 1.0
     return T
+
+
+def split_T(T: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    return T[..., :3, :3], T[..., :3, 3]
+
+
+def inv_T(T: torch.Tensor) -> torch.Tensor:
+    """Rigid-transform inverse (≙ Isometry3d.inverse, src/v2/main.py:42-43)."""
+    R, t = split_T(T)
+    Rt = R.transpose(-1, -2)
+    return make_T(Rt, -(Rt @ t[..., None])[..., 0])
+
+
+def compose(Ta: torch.Tensor, Tb: torch.Tensor) -> torch.Tensor:
+    return Ta @ Tb
+
+
+def transform_points(T: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """Apply a (...,4,4) rigid transform to points (...,N,3) -> (...,N,3)."""
+    R, t = split_T(T)
+    return rotate_points(R, X) + t[..., None, :]
+
+
+def rotate_points(R: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    return X @ R.transpose(-1, -2)
+
+
+def project_so3(M: torch.Tensor) -> torch.Tensor:
+    """Project an arbitrary (...,3,3) matrix onto SO(3) via SVD (det +1)."""
+    U, _, Vt = torch.linalg.svd(M)
+    det = torch.linalg.det(U @ Vt)
+    D = torch.stack([torch.ones_like(det), torch.ones_like(det), det], dim=-1)
+    return (U * D[..., None, :]) @ Vt
 
 
 def scale_edge_terms(R, t, i, j, meas):

@@ -126,6 +126,29 @@ def solve_pnp_ransac(Xw, uv, intr, mask, guess_R=None, guess_t=None, *,
     return R, t, inliers, inliers.sum()
 
 
+def refine_from_prior(Xw, uv, intr, mask, guess_R, guess_t, *, threshold_px: float = 8.0,
+                      refine_iters: int = 10, min_inliers: int = 25,
+                      min_inlier_frac: float = 0.25):
+    """solve_pnp_tracked's fast branch, all on the device: gate inliers on
+    the raw prior, GN-polish on them, re-gate, polish once more. Returns
+    (R_cw, t_cw, inlier_mask, n_inliers, need_ransac), the last a 0-d bool
+    tensor that the caller reads."""
+    thr_sq = threshold_px**2
+    inl_p = (reprojection_error_sq(guess_R, guess_t, Xw, uv, intr) < thr_sq) & mask
+    R0, t0 = pnp_gauss_newton(guess_R, guess_t, Xw, uv, intr, inl_p.to(Xw.dtype),
+                              n_iters=refine_iters)
+    inl0 = (reprojection_error_sq(R0, t0, Xw, uv, intr) < thr_sq) & mask
+    R1, t1 = pnp_gauss_newton(R0, t0, Xw, uv, intr, inl0.to(Xw.dtype),
+                              n_iters=refine_iters)
+    inl1 = (reprojection_error_sq(R1, t1, Xw, uv, intr) < thr_sq) & mask
+    n1 = inl1.sum()
+    n_cand = torch.clamp_min(mask.sum(), 1)
+    need_ransac = (n1 < min_inliers) | (
+        n1.to(Xw.dtype) < min_inlier_frac * n_cand.to(Xw.dtype)
+    )
+    return R1, t1, inl1, n1, need_ransac
+
+
 def solve_pnp_tracked(Xw, uv, intr, mask, guess_R, guess_t, *,
                       idx: torch.Tensor | None = None,
                       generator: torch.Generator | None = None,
@@ -143,19 +166,9 @@ def solve_pnp_tracked(Xw, uv, intr, mask, guess_R, guess_t, *,
 
     Returns (R_cw, t_cw, inlier_mask, n_inliers, used_ransac).
     """
-    thr_sq = threshold_px**2
-    inl_p = (reprojection_error_sq(guess_R, guess_t, Xw, uv, intr) < thr_sq) & mask
-    R0, t0 = pnp_gauss_newton(guess_R, guess_t, Xw, uv, intr, inl_p.to(Xw.dtype),
-                              n_iters=refine_iters)
-    inl0 = (reprojection_error_sq(R0, t0, Xw, uv, intr) < thr_sq) & mask
-    R1, t1 = pnp_gauss_newton(R0, t0, Xw, uv, intr, inl0.to(Xw.dtype),
-                              n_iters=refine_iters)
-    inl1 = (reprojection_error_sq(R1, t1, Xw, uv, intr) < thr_sq) & mask
-    n1 = inl1.sum()
-    n_cand = torch.clamp_min(mask.sum(), 1)
-    need_ransac = (n1 < min_inliers) | (
-        n1.to(Xw.dtype) < min_inlier_frac * n_cand.to(Xw.dtype)
-    )
+    R1, t1, inl1, n1, need_ransac = refine_from_prior(
+        Xw, uv, intr, mask, guess_R, guess_t, threshold_px=threshold_px,
+        refine_iters=refine_iters, min_inliers=min_inliers, min_inlier_frac=min_inlier_frac)
     if bool(need_ransac):
         R, t, inl, n = solve_pnp_ransac(
             Xw, uv, intr, mask, guess_R, guess_t, idx=idx, generator=generator,

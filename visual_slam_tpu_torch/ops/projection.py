@@ -1,5 +1,5 @@
 """Pinhole-camera projection primitives (port of
-visual_slam_tpu/ops/projection.py:17-29, :37-84).
+visual_slam_tpu/ops/projection.py).
 
 Intrinsics are a 4-vector (fx, fy, cx, cy), distortion-free, matching the
 reference (D = 0, src/v2/main.py:54).
@@ -16,6 +16,12 @@ def intrinsics_matrix(intr: torch.Tensor) -> torch.Tensor:
     o = torch.ones_like(fx)
     return torch.stack([torch.stack([fx, z, cx]), torch.stack([z, fy, cy]),
                         torch.stack([z, z, o])])
+
+
+def make_homogeneous(x: torch.Tensor) -> torch.Tensor:
+    """(...,N,D) -> (...,N,D+1) with trailing ones (≙ MakeHomogeneous,
+    src/v2/helper_functions.py:362-364)."""
+    return torch.cat([x, torch.ones_like(x[..., :1])], dim=-1)
 
 
 def projection_matrix(T_cw: torch.Tensor, intr: torch.Tensor) -> torch.Tensor:

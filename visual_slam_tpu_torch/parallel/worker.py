@@ -28,6 +28,11 @@ sharded_ba.optimize_sharded, optimize_large_sharded or
 sharded_pg.optimize_sharded. "problem" is {"npz": path} (the arrays of a
 BAProblem or PoseGraph) or {"synthetic": "loop_map" | "big_pose_graph" |
 "multihost", ...its keyword arguments} (utils/synthetic).
+
+The dry runs of entry.py are jobs of their own, {"name", "kind":
+"dryrun_multichip", "opts": {"n_devices": n}} and {"name", "kind":
+"dryrun_multihost"}: the rank runs entry.solve_dryrun or
+entry.solve_multihost once and writes what it returns.
 """
 from __future__ import annotations
 
@@ -110,6 +115,13 @@ def run_job(job: dict, group, device, out_dir: str) -> str:
     """Run one job on this rank; write its npz; return its log line."""
     rank, world = dist.get_rank(group), dist.get_world_size(group)
     kind, opts = job["kind"], job.get("opts", {})
+    if kind in ("dryrun_multichip", "dryrun_multihost"):
+        from .. import entry  # imports this package
+
+        res = (entry.solve_dryrun(entry.dryrun_problems(opts["n_devices"]), group, device)
+               if kind == "dryrun_multichip" else entry.solve_multihost(group, device))
+        np.savez(os.path.join(out_dir, f"{job['name']}.r{rank}.npz"), **res)
+        return f"rank {rank}/{world} {job['name']}: {kind} done"
     prob = load_problem(job["problem"], kind, device)
     costs, walls = [], []
     if device.type == "cuda":

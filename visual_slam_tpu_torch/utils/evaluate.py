@@ -48,3 +48,13 @@ def ate_rmse(est_positions: np.ndarray, gt_positions: np.ndarray,
     aligned = (s * (R @ est_positions.T)).T + t
     err = np.linalg.norm(aligned - gt_positions, axis=-1)
     return float(np.sqrt(np.mean(err**2))), err
+
+
+def positions_from_poses_wc(T_wc: np.ndarray) -> np.ndarray:
+    """(N,4,4) cam->world -> (N,3) camera centres."""
+    return np.asarray(T_wc)[:, :3, 3]
+
+
+def positions_from_poses_cw(R_cw: np.ndarray, t_cw: np.ndarray) -> np.ndarray:
+    """world->camera (R,t) stacks -> (N,3) camera centres = -R^T t."""
+    return -np.einsum("nji,nj->ni", np.asarray(R_cw), np.asarray(t_cw))

@@ -1,4 +1,5 @@
-"""Stage timers (port of StageTimers in visual_slam_tpu/utils/profiling.py).
+"""Stage timers and a trace region (port of StageTimers and xla_trace in
+visual_slam_tpu/utils/profiling.py).
 
 Each timed stage ends with a device synchronise when the device is a GPU
 and `sync` is on, so a stage's time includes its kernels and not only their
@@ -49,3 +50,17 @@ class StageTimers:
         """units per second spent in `name` (e.g. BA iterations/s)."""
         total = float(np.sum(self.ms.get(name, []))) / 1e3
         return units / total if total > 0 else 0.0
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """torch.profiler trace region: the host's operators and, where there is
+    a card, its kernels and copies. On exit it writes a Chrome trace
+    (`<host>_<pid>.<ms>.pt.trace.json`, opened by chrome://tracing,
+    Perfetto or TensorBoard) into `log_dir`. Yields the profiler."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+            activities=acts, on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir)) as prof:
+        yield prof
