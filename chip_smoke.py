@@ -122,6 +122,11 @@ Phases, each raising on failure:
                on queued-event times, 640x480, K=1024, M=2048);
                dryrun_multichip(1) on an NCCL world of one rank against
                the same call on the CPU, its seconds
+ 26. bench     `python -m visual_slam_tpu_torch.bench --frames 80
+               --fullseq-frames 0 --sections headline,device_rate,roofline`
+               as a subprocess: exit 0, its full record and compact headline
+               as the last two lines, naming this card, "correct" true, B1
+               and B3 once a frame of each headline run; its headline logged
 
 Prints the kernels' JSON line, then, as the last line,
 {"ok": true, "device": {...}}. Exits non-zero with no result line when
@@ -139,6 +144,7 @@ import warnings
 import numpy as np
 import torch
 
+from visual_slam_tpu_torch.ops.kernels import launch_counts as kernel_counts
 from visual_slam_tpu_torch.utils.cuda_timing import cuda_ms, device_ms, device_us, queued_ms
 
 FRAMES = 60
@@ -276,13 +282,6 @@ def runtime_syncs(fn) -> int:
     with torch.profiler.profile(activities=acts) as prof:
         fn()
     return sum(e.count for e in prof.key_averages() if e.key in SYNC_CALLS)
-
-
-def kernel_counts() -> dict:
-    from visual_slam_tpu_torch.ops.kernels import detect_kernel, patch_kernel, seg_kernel
-
-    return {"detect_blur": detect_kernel.launches, "patch": patch_kernel.launches,
-            "cam_reduce": seg_kernel.reduce_launches, "cam_expand": seg_kernel.expand_launches}
 
 
 def zero_kernel_counts() -> None:
@@ -1666,44 +1665,6 @@ ENTRY_SPREAD_FACTOR = 2.0
 ROOF_K, ROOF_M = 1024, 2048  # one tracked frame of the SLAM loop (SlamConfig defaults)
 
 
-def roofline_stages(dev, gray_np) -> dict:
-    """Each stage of one tracked frame at 640x480, K=1024, M=2048 as a
-    callable on card tensors: the tracking path's own functions in order,
-    each on the outputs of the one before; PnP's prior-seeded branch
-    (pnp.refine_from_prior: no host read) on a 2048-point snapshot seen from
-    a pose 3 cm and ~1 deg off the prior."""
-    from visual_slam_tpu_torch.models import frontend
-    from visual_slam_tpu_torch.ops import descriptor_mxu, lie, match, pnp, projection
-    from visual_slam_tpu_torch.ops.kernels import detect_kernel, patch_kernel
-
-    rng = np.random.default_rng(25)
-    gray = torch.from_numpy(gray_np).to(dev)
-    peaks, blurred = detect_kernel.corner_peaks_and_blur(gray)
-    uv, _, valid = frontend._topk_select(peaks, ROOF_K)
-    flat = patch_kernel.extract_patches(blurred, uv).reshape(ROOF_K, -1)
-    theta = descriptor_mxu.orientation_from_patches(flat)
-    desc = descriptor_mxu._sample_and_pack(flat, theta)
-    snap_desc = torch.from_numpy(rng.integers(0, 2**32, (ROOF_M, 8), dtype=np.uint32).view(np.int32)).to(dev)
-    snap_valid = torch.ones(ROOF_M, dtype=torch.bool, device=dev)
-    X = torch.from_numpy(np.stack([rng.uniform(-2, 2, ROOF_M), rng.uniform(-1.5, 1.5, ROOF_M),
-                                   rng.uniform(2, 8, ROOF_M)], -1).astype(np.float32)).to(dev)
-    intr = torch.tensor([481.2, 480.0, 319.5, 239.5], device=dev)
-    R = lie.so3_exp(torch.tensor([0.01, -0.02, 0.005], device=dev))
-    t = torch.tensor([0.03, -0.01, 0.02], device=dev)
-    obs = projection.project(R, t, X, intr)[0] + torch.from_numpy(
-        rng.normal(scale=0.5, size=(ROOF_M, 2)).astype(np.float32)).to(dev)
-    eye, zero = torch.eye(3, device=dev), torch.zeros(3, device=dev)
-    return {
-        "detect_blur": lambda: detect_kernel.corner_peaks_and_blur(gray),
-        "topk": lambda: frontend._topk_select(peaks, ROOF_K),
-        "patches": lambda: patch_kernel.extract_patches(blurred, uv),
-        "orientation": lambda: descriptor_mxu.orientation_from_patches(flat),
-        "descriptor": lambda: descriptor_mxu._sample_and_pack(flat, theta),
-        "match": lambda: match.match_ratio_test(snap_desc, desc, snap_valid, valid),
-        "pnp": lambda: pnp.refine_from_prior(X, obs, intr, snap_valid, eye, zero, refine_iters=10),
-    }
-
-
 def dry_solve(kind, device, scale=1.0) -> dict:
     """The dry run's solve `kind` ("ba", "large") unsharded on `device`, its
     translations scaled by `scale`: R, t, X and cost as NumPy."""
@@ -1781,7 +1742,7 @@ def entry_phase(dev, smi, gray_np) -> dict:
     # (a stage of more launches than the launch queue holds, PnP's two GN
     # loops, is timed at the host's launch rate; the profiler's sum of its
     # kernels is printed beside each stage)
-    stages = roofline_stages(dev, gray_np)
+    stages = roofline.tracking_stages(dev, gray_np, ROOF_K, ROOF_M)
     stage_ms = {name: queued_ms(fn) for name, fn in stages.items()}
     kernel_ms = {name: device_ms(fn, iters=10) for name, fn in stages.items()}
     H, W = gray_np.shape
@@ -1794,6 +1755,8 @@ def entry_phase(dev, smi, gray_np) -> dict:
             f"({row.get('pct_compute_peak')}%)  {row.get('achieved_gbps')} GB/s "
             f"({row.get('pct_hbm_peak')}%)  {row['bound']}; kernels {kernel_ms[name][0]:.4f} ms "
             f"({kernel_ms[name][1]})")
+    log(f"[entry]   pnp_ransac_branch {stage_ms['pnp_ransac_branch']:.4f} ms (the tracked solver from a "
+        f"prior 40/40 deg off; no stage_costs row); kernels {kernel_ms['pnp_ransac_branch'][0]:.4f} ms")
     log(f"[entry] stage table JSON {json.dumps(table)}")
 
     # dryrun_multichip(1): an NCCL world of one rank here, then the CPU
@@ -1839,6 +1802,59 @@ def entry_phase(dev, smi, gray_np) -> dict:
         raise AssertionError(f"dry run: a kernel never launched ({dry_launches})")
     log(f"[entry] phase 25 took {time.perf_counter() - t_start:.1f} s")
     return {**paths, "dryrun_multichip_1": dry_launches}
+
+
+# Phase 26: the benchmark (visual_slam_tpu_torch/bench.py) as a subprocess at
+# a short size: 80 frames, so the monocular init (near frame ~36 at stride 1)
+# lands well inside the run; its contract and its verdict checked here.
+BENCH_ARGS = ("--frames", "80", "--fullseq-frames", "0", "--sections", "headline,device_rate,roofline")
+BENCH_TIMEOUT_S = 420
+BENCH_SUMMARY_KEYS = ("metric", "value", "unit", "fps_io_passes", "fps_no_io", "fps_device_rate",
+                      "ate_rmse_m", "tracking_phase_fps", "init_phase_s", "mode", "keyframes",
+                      "correct", "device")
+
+
+def bench_phase(dev, smi) -> dict:
+    """Phase 26: `python -m visual_slam_tpu_torch.bench` on the card at
+    BENCH_ARGS: exit 0, the full record on the line before the last and the
+    compact headline on the last, both naming this card, "correct" true,
+    B1 and B3 once a frame of each headline run. Returns the launches of the
+    headline's io run, counted in the bench's own process."""
+    t_start = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "visual_slam_tpu_torch.bench", *BENCH_ARGS],
+                         capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    lines = res.stdout.strip().splitlines()
+    if res.returncode != 0 or len(lines) < 2:
+        raise AssertionError(f"bench: exit {res.returncode}, {len(lines)} stdout lines; stderr tail "
+                             f"{res.stderr[-3000:]}")
+    rec, head = json.loads(lines[-2]), json.loads(lines[-1])
+    missing = [k for k in BENCH_SUMMARY_KEYS if k not in head]
+    kind = torch.cuda.get_device_name(0)
+    if missing or head.get("partial") or not (rec["correct"] is True and head["correct"] is True):
+        raise AssertionError(f"bench: summary keys missing {missing}, correct {rec['correct']}, "
+                             f"checks {rec['checks']}")
+    if rec["device"]["kind"] != kind or head["device"]["kind"] != kind or rec["device"]["smi"] != smi:
+        raise AssertionError(f"bench: device {rec['device']}, not {kind} ({smi})")
+    h = rec["sections"]["headline"]
+    for run in (h["io"], h["no_io"], h["other_driver"]):
+        n = run["frames"]
+        if run["launches"]["detect_blur"] != n or run["launches"]["patch"] != n:
+            raise AssertionError(f"bench: {run['driver']} headline run launched {run['launches']} over {n} frames")
+    dr, roof = rec["sections"]["device_rate"], rec["sections"]["roofline"]
+    log(f"[bench] {' '.join(BENCH_ARGS)}: headline {head['value']:.2f} frames/s with decode (passes "
+        f"{[round(f, 2) for f in head['fps_io_passes']]}), {head['fps_no_io']:.2f} without, "
+        f"{h['driver']}; {h['other_driver']['driver']} {h['other_driver']['fps']:.2f}; Sim3 ATE "
+        f"{head['ate_rmse_m']:.6f} m, init frame {h['io']['history']['init']}, init phase "
+        f"{head['init_phase_s']:.2f} s, tracking phase {head['tracking_phase_fps']:.2f} frames/s, "
+        f"keyframes at {h['io']['history']['keyframes']}; {smi}")
+    log(f"[bench] device rate {dr['fps_device_rate_per_dispatch']:.2f} frames/s by the host clock, "
+        f"{dr['fps_device_rate']:.2f} by device-busy time (busy share {dr['busy_share']:.3f}), "
+        f"{dr['host_syncs_per_frame']:.2f} host syncs a frame, {dr['ransac_frames']} of {dr['frames']} "
+        f"frames took RANSAC; roofline ms {({k: round(v['ms'], 4) for k, v in roof['table'].items()})}, "
+        f"RANSAC branch {roof['pnp_ransac_branch_ms']:.3f} ms; checks {rec['checks']}")
+    log(f"[bench] phase 26 took {time.perf_counter() - t_start:.1f} s (the bench's own sections "
+        f"{({k: round(v['section_s'], 1) for k, v in rec['sections'].items()})})")
+    return {"bench_headline_80": h["io"]["launches"]}
 
 
 def main() -> int:
@@ -2210,6 +2226,7 @@ def main() -> int:
     pipelined_launches = pipelined_phase(dev, smi, (rendered, scene.ground_truth(), wall, rgbd_stamps),
                                          mono_run, (frames, revisit_gt, revisit_wall, revisit_stamps))
     entry_launches = entry_phase(dev, smi, rendered[0][1])
+    bench_launches = bench_phase(dev, smi)
     secs = np.diff(lap)
     log(f"[loop] phases 17-21 took {lap[-1] - lap[0]:.1f} s: pose graph {secs[0]:.1f}, scoring "
         f"{secs[1]:.1f}, close loop {secs[2]:.1f}, rendering {REVISIT_FRAMES} frames in {RENDER_THREADS} "
@@ -2219,11 +2236,12 @@ def main() -> int:
     # (`launches` below), 15 (twice), 20 (one of its two runs), 21, 22 (its
     # sharded solves; a fleet path sums its ranks' counts), 23 (the
     # command line's own process, counted there around its run), 24 (the
-    # pipelined driver, one run of each scene) and 25 (the entry step's 20
-    # steps on each of its two snapshots, the dry run on a world of one).
+    # pipelined driver, one run of each scene), 25 (the entry step's 20
+    # steps on each of its two snapshots, the dry run on a world of one) and
+    # 26 (the bench's headline io run, counted in its own process).
     by_path = {"rgbd_60": launches, **mono_launches, "revisit_480": revisit_launches,
                "batched_4x60": batched_launches, **sharded_launches, "cli_rgbd_60": cli_launches,
-               **pipelined_launches, **entry_launches}
+               **pipelined_launches, **entry_launches, **bench_launches}
 
     kernels = [
         dict(name="detect_blur", route="cuda", source="visual_slam_tpu_torch/csrc/detect_blur.cu",

@@ -232,9 +232,10 @@ def _run(args, cwd):
 def test_port_imports_no_jax():
     """Every module of the port imports without pulling in jax, the sharded
     solvers (parallel/*, the rank worker), the command line's outputs, the
-    entry module and the roofline among them; and neither does running the
-    command line's lazily imported writers, its argument parser, the entry's
-    arrays and its main, nor the roofline's table."""
+    entry module, the roofline and the benchmark among them; and neither does
+    running the command line's lazily imported writers, its argument parser,
+    the entry's arrays and its main, the roofline's table, nor the
+    benchmark's argument parser."""
     code = (
         "import contextlib, importlib, io, pkgutil, sys, tempfile\n"
         "import numpy as np\n"
@@ -244,7 +245,7 @@ def test_port_imports_no_jax():
         "assert len(mods) >= 20, mods\n"
         "need = ['parallel.mesh', 'parallel.multihost', 'parallel.sharded_ba', 'parallel.sharded_pg',\n"
         "        'parallel.worker', 'utils.checkpoint', 'utils.g2o_io', 'utils.viz', 'utils.live_viewer',\n"
-        "        'entry', 'utils.roofline']\n"
+        "        'entry', 'utils.roofline', 'bench']\n"
         "assert all('visual_slam_tpu_torch.' + m in mods for m in need), mods\n"
         "from visual_slam_tpu_torch import pipeline\n"
         "from visual_slam_tpu_torch.models.map_state import SlamMap\n"
@@ -261,7 +262,8 @@ def test_port_imports_no_jax():
         "roofline.stage_table(roofline.stage_costs(), {'patches': 1.0})\n"
         "with contextlib.redirect_stderr(io.StringIO()):\n"
         "    assert entry.main() == (0 if __import__('torch').cuda.is_available() else 1)\n"
-        "for main in (pipeline.main, worker.main):\n"
+        "from visual_slam_tpu_torch import bench\n"
+        "for main in (pipeline.main, worker.main, bench.main):\n"
         "    with contextlib.redirect_stdout(io.StringIO()), contextlib.suppress(SystemExit):\n"
         "        main(['--help'])\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'visual_slam_tpu.'))]\n"

@@ -104,13 +104,20 @@ class ICLNUIMDataset:
 
     def async_loader(self, start: int = 0, stop: int | None = None, **kw):
         """Native (C++) prefetching loader over [start, stop), see
-        visual_slam_tpu_torch.native. Returns (loader, index_offset): frame
-        i of the dataset is loader.get(i - index_offset)."""
+        visual_slam_tpu_torch.native, at the size of the range's first image
+        (its PNG header) unless `height` and `width` are given. Returns
+        (loader, index_offset): frame i of the dataset is
+        loader.get(i - index_offset)."""
+        from PIL import Image
+
         from .. import native
 
         stop = stop if stop is not None else len(self)
         rgb = [self.associations[i].rgb_path for i in range(start, stop)]
         dep = [self.associations[i].depth_path for i in range(start, stop)]
+        if rgb and "height" not in kw and "width" not in kw:
+            with Image.open(rgb[0]) as im:
+                kw["width"], kw["height"] = im.size
         return native.AsyncFrameLoader(rgb, dep, **kw), start
 
     def async_frames(self, start: int = 0, stop: int | None = None):

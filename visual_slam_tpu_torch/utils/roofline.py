@@ -3,8 +3,10 @@ the H100's peaks (port of visual_slam_tpu/utils/roofline.py).
 
 The counts describe the work of each stage and hold on any chip; only the
 peaks are the card's. Each numerator is derived from the stage's shapes and
-defended next to its term. chip_smoke.py (phase 25) times each stage of one
-tracked frame on the card and prints `stage_table` on those times.
+defended next to its term. `tracking_stages` gives each stage of one
+tracked frame as a callable; the benchmark (`bench.py`, its roofline
+section) and chip_smoke.py (phase 25) time them on the card and print
+`stage_table` on those times.
 
 Conventions: a fused multiply-add counts as 2 operations; a compare or max
 as 1. "bytes" is the stage's traffic ASSUMING its operands and results
@@ -15,6 +17,9 @@ marks such a row `hbm_roundtrip: False`, drops its bandwidth share and
 classifies it by operations alone: no row reports more than 100% of a peak.
 """
 from __future__ import annotations
+
+import numpy as np
+import torch
 
 # NVIDIA H100 SXM data sheet, dense rates without sparsity, at the 700 W
 # power limit. Float32 is the rate outside the tensor cores: the port turns
@@ -182,3 +187,60 @@ def stage_table(costs: dict, measured_ms: dict | None = None) -> dict:
                 row["bound"] = "bandwidth"
         table[k] = row
     return table
+
+
+def tracking_stages(device, gray, K: int = 1024, M: int = 2048, intrinsics=None,
+                    seed: int = 25, refine_iters: int = 10, n_hyps: int = 128) -> dict:
+    """Each stage of one tracked frame as a callable on `device` tensors: the
+    tracking path's own functions in order, each on the outputs of the one
+    before, over `gray` ((H,W) gray, uint8 or float); matching against an
+    M-slot snapshot of random descriptors; PnP's prior-seeded branch
+    (pnp.refine_from_prior: no host read) on M points seen from a pose 3 cm
+    and ~1 deg off the prior; and, as "pnp_ransac_branch", the tracked
+    solver from a prior 40 deg / 40 deg off (the JAX bench's, bench.py:
+    406-419), which falls through to RANSAC. Every row but the last has a
+    `stage_costs` row of the same name. `seed` draws the snapshot, the
+    points' noise and the RANSAC minimal sets."""
+    from scipy.spatial.transform import Rotation
+
+    from ..models import frontend
+    from ..ops import descriptor_mxu, lie, match, pnp, projection
+    from ..ops.kernels import detect_kernel, patch_kernel
+    from .scene import ICL_INTRINSICS
+
+    rng = np.random.default_rng(seed)
+    gray = frontend.to_gray(torch.as_tensor(np.asarray(gray)).to(device))
+    peaks, blurred = detect_kernel.corner_peaks_and_blur(gray)
+    uv, _, valid = frontend._topk_select(peaks, K)
+    flat = patch_kernel.extract_patches(blurred, uv).reshape(K, -1)
+    theta = descriptor_mxu.orientation_from_patches(flat)
+    desc = descriptor_mxu._sample_and_pack(flat, theta)
+    snap_desc = torch.from_numpy(rng.integers(0, 2**32, (M, 8), dtype=np.uint32).view(np.int32)).to(device)
+    snap_valid = torch.ones(M, dtype=torch.bool, device=device)
+    X = torch.from_numpy(np.stack([rng.uniform(-2, 2, M), rng.uniform(-1.5, 1.5, M),
+                                   rng.uniform(2, 8, M)], -1).astype(np.float32)).to(device)
+    intr = torch.tensor(ICL_INTRINSICS if intrinsics is None else intrinsics, dtype=torch.float32,
+                        device=device)
+    R = lie.so3_exp(torch.tensor([0.01, -0.02, 0.005], device=device))
+    t = torch.tensor([0.03, -0.01, 0.02], device=device)
+    obs = projection.project(R, t, X, intr)[0] + torch.from_numpy(
+        rng.normal(scale=0.5, size=(M, 2)).astype(np.float32)).to(device)
+    eye, zero = torch.eye(3, device=device), torch.zeros(3, device=device)
+    R_bad = torch.tensor(Rotation.from_euler("xyz", [40, 40, 0], degrees=True).as_matrix(),
+                         dtype=torch.float32, device=device)
+    t_bad = torch.ones(3, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return {
+        "detect_blur": lambda: detect_kernel.corner_peaks_and_blur(gray),
+        "topk": lambda: frontend._topk_select(peaks, K),
+        "patches": lambda: patch_kernel.extract_patches(blurred, uv),
+        "orientation": lambda: descriptor_mxu.orientation_from_patches(flat),
+        "descriptor": lambda: descriptor_mxu._sample_and_pack(flat, theta),
+        "match": lambda: match.match_ratio_test(snap_desc, desc, snap_valid, valid),
+        "pnp": lambda: pnp.refine_from_prior(X, obs, intr, snap_valid, eye, zero,
+                                             refine_iters=refine_iters),
+        "pnp_ransac_branch": lambda: pnp.solve_pnp_tracked(
+            X, obs, intr, snap_valid, R_bad, t_bad, generator=gen, n_hyps=n_hyps,
+            refine_iters=refine_iters),
+    }
